@@ -31,10 +31,11 @@ and the script exits non-zero:
    tokens, some greedy and some sampled. Every stream must finish with 32
    tokens, two identical greedy requests must agree, and the launch count
    of every kernel must have grown during this phase alone.
-6. profile: a steady decode batch of 32
-   streams at the same 8B geometry under ``torch.profiler``: device time
-   by kernel, the share of decode wall time the device was busy, and the
-   median decode step.
+6. profile: at the same 8B geometry under ``torch.profiler``, a steady
+   decode batch of 32 streams (device time by kernel, the share of decode
+   wall time the device was busy, the median decode step), then a
+   prefill-only batch of 2 streams of 2048-token prompts with 1 output
+   token (device time by kernel over the prefill steps, and K3's share).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}``: one entry per kernel wrapper, its numbers at one
@@ -302,15 +303,16 @@ def check_attention(torch, bench: Bench, gen, results: dict) -> None:
                 del k_l, v_l, out, ref
             del caches, scales
             torch.cuda.empty_cache()
-    # K3: B=2, T=1024, first chunk then second chunk
+    # K3: B=2, T=1024, first chunk then second chunk (16-token pages);
+    # the second chunk of an int8 cache at 128-token pages
     T = 1024
-    bs = 16
-    for quantized, window in ((True, None), (False, None), (True, 700)):
+    for bs, quantized, window, starts_ in ((16, True, None, (0, T)), (16, False, None, (0, T)),
+                                           (16, True, 700, (0, T)), (128, True, None, (T,))):
         full = np.array([2 * T, 2 * T], np.int32)
         tables, n_pages = _paged_layout(torch, np_rng, full, bs)
         caches, scales = _make_cache(torch, gen, n_pages, bs, layer, quantized)
         q = torch.randn((2, T, H, DH), device="cuda", generator=gen).to(torch.bfloat16)
-        for start in (0, T):
+        for start in starts_:
             starts = torch.full((2,), start, dtype=torch.int32, device="cuda")
             ctxp = torch.full((2,), start + T, dtype=torch.int32, device="cuda")
             args = (q, caches[0], caches[1], layer, tables, starts, ctxp, bs, window, scales[0], scales[1])
@@ -535,10 +537,32 @@ async def serve(torch) -> dict:
     }
 
 
+def _device_rows(prof) -> list[tuple[float, int, str]]:
+    """(device ms, calls, name) by kernel from a torch.profiler run,
+    largest first; raises if the profiler saw no device time."""
+    rows = []
+    for ev in prof.key_averages():
+        dev = getattr(ev, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(ev, "self_cuda_time_total", 0)
+        if dev > 0:
+            rows.append((dev / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    if sum(r[0] for r in rows) <= 0:
+        raise AssertionError("profile: the profiler saw no device time")
+    return rows
+
+
+def _top(rows, n=15) -> list[dict]:
+    return [{"ms": ms, "calls": c, "name": k[:90]} for ms, c, k in rows[:n]]
+
+
 async def profile(torch) -> dict:
-    """Device time by kernel over a steady decode batch (32 streams, 128
-    prompt tokens, 64 generated), and the device-busy share of the
-    decode steps' wall time."""
+    """Two profiled windows on one 8B engine. Decode: a steady batch of 32
+    streams (128 prompt tokens, 64 generated): device time by kernel, the
+    device-busy share of the wall time, the median decode step. Prefill:
+    2 streams of 2048-token prompts and 1 output token, i.e. prefill steps
+    only (1024-token chunks): device time by kernel and K3's share of it."""
     import numpy as np
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
@@ -550,44 +574,55 @@ async def profile(torch) -> dict:
     engine = await TorchEngine.launch(*engine_8b())
     rng = np.random.default_rng(2)
     n, isl, osl = 32, 128, 64
+    p_n, p_isl = 2, 2048
 
-    async def one(i):
+    async def one(i, isl=isl, osl=osl):
         req = PreprocessedRequest(
-            request_id=f"prof-{i}", token_ids=rng.integers(0, V, isl).tolist(),
+            request_id=f"prof-{isl}-{i}", token_ids=rng.integers(0, V, isl).tolist(),
             sampling=SamplingOptions(use_greedy=True), stop=StopConditions(max_tokens=osl))
         return [t async for out in engine.as_async_engine().generate(req, Context()) for t in out.token_ids]
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     try:
         await asyncio.gather(*[one(i) for i in range(4)])  # warm-up
         engine.step_seconds = {"prefill": [], "decode": []}
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=activities) as prof:
             t0 = time.monotonic()
             outs = await asyncio.gather(*[one(i) for i in range(n)])
             wall = time.monotonic() - t0
+        dec = engine.step_seconds["decode"]
+        prefill_ms = [x * 1e3 for x in engine.step_seconds["prefill"]]
+        engine.step_seconds = {"prefill": [], "decode": []}
+        with torch_profile(activities=activities) as pprof:
+            t0 = time.monotonic()
+            p_outs = await asyncio.gather(*[one(i, p_isl, 1) for i in range(p_n)])
+            p_wall = time.monotonic() - t0
+        p_steps = dict(engine.step_seconds)
     finally:
         await engine.shutdown()
-    if any(len(o) != osl for o in outs):
+    if any(len(o) != osl for o in outs) or any(len(o) != 1 for o in p_outs):
         raise AssertionError("profile: a stream did not finish")
-    rows = []
-    for ev in prof.key_averages():
-        dev = getattr(ev, "self_device_time_total", None)
-        if dev is None:
-            dev = getattr(ev, "self_cuda_time_total", 0)
-        if dev > 0:
-            rows.append((dev / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows, p_rows = _device_rows(prof), _device_rows(pprof)
     device_ms = sum(r[0] for r in rows)
-    if device_ms <= 0:
-        raise AssertionError("profile: the profiler saw no device time")
-    dec = engine.step_seconds["decode"]
+    p_device_ms = sum(r[0] for r in p_rows)
+    k3_ms = sum(r[0] for r in p_rows if "prefill_kernel" in r[2])
     return {
         "streams": n, "isl": isl, "osl": osl, "wall_s": wall,
         "tok_s": n * osl / wall,
         "device_busy_share_of_wall": device_ms / 1e3 / wall,
         "decode_steps": len(dec), "decode_step_ms_median": _median_ms(dec),
-        "prefill_step_ms": [x * 1e3 for x in engine.step_seconds["prefill"]],
+        "prefill_step_ms": prefill_ms,
         "device_ms_total": device_ms,
-        "top_kernels_ms": [{"ms": ms, "calls": c, "name": k[:90]} for ms, c, k in rows[:15]],
+        "top_kernels_ms": _top(rows),
+        "prefill_only": {
+            "streams": p_n, "isl": p_isl, "osl": 1, "wall_s": p_wall,
+            "prefill_step_ms": [x * 1e3 for x in p_steps["prefill"]],
+            "decode_steps": len(p_steps["decode"]),
+            "device_ms_total": p_device_ms,
+            "device_busy_share_of_wall": p_device_ms / 1e3 / p_wall,
+            "k3_ms": k3_ms, "k3_share_of_device": k3_ms / p_device_ms,
+            "top_kernels_ms": _top(p_rows),
+        },
     }
 
 

@@ -3,34 +3,59 @@
 // K2 replaces dynamo_tpu/ops/paged_attention.py::
 // paged_attention_decode_stacked (body _decode_kernel_stacked): one query
 // token per sequence against layer `layer` of the stacked paged cache.
-// K3 replaces paged_attention_prefill_stacked (body
-// _prefill_kernel_stacked): causal flash attention for a chunk of T
-// queries at positions start[b] + t, whose own K/V are already in the
-// cache. Both honour an optional sliding window and an int8 cache with
-// per-(slot, head) f32 scales [L, N, Hk, bs]: the K scale multiplies the
-// f32 scores per key, the V scale folds into the probabilities, which are
-// then rounded to bf16 before P @ V, as the Pallas kernels do. Online
-// softmax in f32; the running sum is floored at 1e-9, so rows with no
-// valid key (padded rows, ctx = 0) write exact zeros.
+// K3 replaces dynamo_tpu/ops/paged_attention.py::
+// paged_attention_prefill_stacked (body _prefill_kernel_stacked): causal
+// flash attention for a chunk of T queries at positions start[b] + t,
+// whose own K/V are already in the cache. Both honour an optional sliding
+// window and an int8 cache with per-(slot, head) f32 scales
+// [L, N, Hk, bs]: the K scale multiplies the f32 scores per key, the V
+// scale folds into the probabilities, which are then rounded to bf16
+// before P @ V, as the Pallas kernels do. Online softmax in f32; the
+// running sum is floored at 1e-9, so rows with no valid key (padded rows,
+// ctx = 0) write exact zeros.
 //
 // What bounds them on an H100: decode reads every live K/V byte once and
 // does 4 operations per cached element, so it is bound by memory. A
 // 1024-token prefill chunk does ~T/2 times more work per byte and is
-// bound by arithmetic.
+// bound by arithmetic: at B=2, T=1024, start 1024 (ctx 2048), H=32,
+// Hk=8, Dh=128 it does 52 GFLOP of Q K^T and P V, 0.052 ms at the
+// card's 989 TFLOP/s bf16 tensor rate, against 0.013 ms to move its
+// bytes at 3.35 TB/s.
 //
-// Design: the cache is never sliced: the kernels compute the layer's
-// offset themselves (64-bit) and read the block table and context length
-// of their sequence. A block stages 32 keys at a time, gathered by
-// position through the block table with 16-byte loads (so page sizes 16
-// and 128 are the same code), converts them to f32 in shared memory
-// (int8 and bf16 values are exact in f32), and runs the online-softmax
-// update for every query row of its KV head: the G = H/Hk query heads of
-// a GQA group share each K/V load. K2: one block per (sequence, KV head).
-// K3: one block per (sequence, 64/G-token query tile, KV head), with
-// 4x4 register tiles for the scores and 4x(Dh/8) tiles for P @ V; it
-// visits only the keys its tile may see (causal end, window start).
-// Simple first: f32 FMAs, no tensor cores, no split over pages
-// (flash-decoding) yet.
+// Both kernels never slice the cache: they compute the layer's offset
+// themselves (64-bit) and read the block table and context length of
+// their sequence, gathering keys by position through the block table
+// with 16-byte copies, so page sizes 16 and 128 are the same code. The
+// G = H/Hk query heads of a GQA group share each K/V load.
+//
+// K2 design: one block per (sequence, KV head) stages 32 keys at a time,
+// converted to f32 in shared memory (int8 and bf16 values are exact in
+// f32), and runs f32 FMAs; no split over pages (flash-decoding) yet.
+//
+// K3 design (arithmetic-bound, so the work goes to the tensor cores):
+// one block of two warpgroups per (KV head, sequence, 128-row query
+// tile), row r = (token r / G, head r % G); each warpgroup owns 64 rows.
+// S = Q K^T and O += P V run as wgmma (bf16, f32 accumulation): Q and
+// each K chunk are read by the tensor cores straight from shared memory,
+// P from registers, V from shared memory as a transposed operand. Not
+// mma.sync: there each warp loads its own operand fragments (ldmatrix)
+// and, at the 32 rows a warp that keeps those loads below the MMA rate,
+// has no registers left to hide their latency; wgmma reads its operands
+// itself and needs half the registers per row, so two blocks fit on an
+// SM and one block's softmax overlaps the other's MMAs. Keys come in
+// chunks of 64: each chunk's K/V rows (and int8 scales) are gathered by
+// cp.async into a double-buffered ring, so chunk j + 1 is in flight
+// while chunk j computes; an int8 chunk is converted once into a bf16
+// tile (exact, by byte permutes and an f32 add rather than the
+// quarter-rate conversion unit), a bf16 chunk is read where it lands.
+// The online softmax stays
+// in registers: row max and sum over the 4 lanes that share a row, and
+// the score fragments, times the V scale and rounded to bf16, are P's
+// operand fragments without a trip through shared memory. The causal /
+// context / window mask is evaluated only on chunks that cross an edge,
+// and a tile visits only the chunks it may see. Tiles that carry the
+// most keys are launched first. TMA is not used: Hopper's TMA cannot
+// gather rows through a block table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -41,7 +66,6 @@ namespace {
 constexpr int NT = 128;   // threads per block
 constexpr int C = 32;     // keys staged per step
 constexpr int MAXG = 8;   // largest GQA group the decode kernel takes
-constexpr int ROWS = 64;  // query rows (tokens x group) per prefill block
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float round_bf16(float v) {
@@ -224,173 +248,492 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 }
 
 // ---------------------------------------------------------------- K3 --
-template <int DH>
-constexpr int prefill_smem_bytes() {
-  return (ROWS * (DH + 4) + 2 * C * (DH + 4) + ROWS * (C + 1) + 3 * ROWS +
-          2 * C) * 4;
+namespace k3 {
+
+constexpr int KC = 64;           // keys per chunk
+constexpr int NWG = 2;           // warpgroups per block, 64 query rows each
+constexpr int PT = 128 * NWG;    // threads per block
+constexpr int ROWS = 64 * NWG;   // query rows (tokens x group) per block
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// 16- and 4-byte global -> shared copies; with live false nothing is read
+// and the destination is zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// this thread's shared-memory writes, made visible to the tensor cores'
+// reads (wgmma reads shared memory through the async proxy)
+__device__ __forceinline__ void fence_to_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// --- wgmma (sm_90a) ---
+// Operands in shared memory are stored as core matrices of 8 rows x 16
+// bytes (128 contiguous bytes), without swizzle, core matrices ordered
+// row-group major: element (r, c) of a [rows][DH] bf16 tile is at
+// core_off<DH>(r, c). A descriptor gives the start address and the byte
+// distances between core matrices along K (lbo) and along M or N (sbo).
+template <int DH>
+__device__ __forceinline__ int core_off(int r, int c) {
+  return ((r >> 3) * (DH / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
+         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit_and_wait() {
+  asm volatile(
+      "wgmma.commit_group.sync.aligned;\n"
+      "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+#define K3_R8(a) "+f"(a[0]), "+f"(a[1]), "+f"(a[2]), "+f"(a[3]), \
+                 "+f"(a[4]), "+f"(a[5]), "+f"(a[6]), "+f"(a[7])
+
+// d (+)= A B^T, 64 x 64 x 16: A (query rows) and B (keys) both K-major in
+// shared memory; acc = 0 overwrites d
+__device__ __forceinline__ void wg_qk(float (&d)[32], uint64_t da,
+                                      uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : K3_R8((d + 0)), K3_R8((d + 8)), K3_R8((d + 16)), K3_R8((d + 24))
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d += A B, 64 x N x 16: A (probabilities) in registers, B (values, rows
+// = keys) MN-major in shared memory
+__device__ __forceinline__ void wg_pv(float (&d)[32], const uint32_t (&a)[4],
+                                      uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, 1, 1, 1, 1;\n"
+      : K3_R8((d + 0)), K3_R8((d + 8)), K3_R8((d + 16)), K3_R8((d + 24))
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+__device__ __forceinline__ void wg_pv(float (&d)[64], const uint32_t (&a)[4],
+                                      uint64_t db) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, 1, 1, "
+      "1, 1;\n"
+      : K3_R8((d + 0)), K3_R8((d + 8)), K3_R8((d + 16)), K3_R8((d + 24)),
+        K3_R8((d + 32)), K3_R8((d + 40)), K3_R8((d + 48)), K3_R8((d + 56))
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db));
+}
+
+#undef K3_R8
+
+// Shared memory of one block, in this order: Q [ROWS][DH] bf16 as core
+// matrices; the ring of copies, two stages of K and V (a bf16 chunk as
+// core matrices, an int8 chunk as [KC][DH + 16] rows), and their scales
+// [2][K, V][KC] f32 (ones for a float cache); for an int8 cache the
+// converted chunk, K and V [KC][DH] bf16 as core matrices.
 template <typename T, int DH>
-__global__ void __launch_bounds__(NT) prefill_kernel(
+struct Layout {
+  static constexpr bool CONVERT = sizeof(T) == 1;
+  static constexpr int RST = DH + 16;  // bytes per staged int8 row
+  static constexpr int Q_BYTES = ROWS * DH * 2;
+  static constexpr int TILE_BYTES = KC * DH * 2;  // bf16 K or V chunk
+  static constexpr int STAGE_BYTES = CONVERT ? KC * RST : TILE_BYTES;
+  static constexpr int SCALE_OFF = Q_BYTES + 4 * STAGE_BYTES;
+  static constexpr int TILE_OFF = SCALE_OFF + 4 * KC * 4;
+  static constexpr int BYTES = TILE_OFF + (CONVERT ? 2 * TILE_BYTES : 0);
+};
+
+// Where a block reads its sequence's keys: so that a chunk costs one
+// table load and a few integer operations per key row.
+struct Gather {
+  const int* table;  // the sequence's block table
+  int64_t kv_base;   // element offset of (layer, slot 0, hk, 0)
+  int64_t sc_base;   // offset of (layer, page 0, hk, 0) in the scales
+  int kv_slot;       // elements from one slot to the next: Hk * DH
+  int sc_page;       // scale elements from one page to the next: Hk * bs
+  int bs, bs_shift;  // page size, and its log2 (-1: not a power of two)
+
+  __device__ __forceinline__ int page_of(int p) const {
+    return bs_shift >= 0 ? p >> bs_shift : p / bs;
+  }
+};
+
+// Start the copies of keys [p0, p0 + KC) into one stage: rows at or past
+// pend are zero-filled and read nothing. Each thread copies one 16-byte
+// column of every STEP-th row; its table entries are loaded first.
+template <typename T, int DH>
+__device__ __forceinline__ void issue_chunk(const Cache& c, const Gather& g,
+                                            int p0, int pend, T* Ks, T* Vs,
+                                            float* kss, float* vss) {
+  using LY = Layout<T, DH>;
+  constexpr int VEC = 16 / sizeof(T);    // elements per copy
+  constexpr int PER_ROW = DH / VEC;      // copies per key row
+  constexpr int STEP = PT / PER_ROW;     // rows per pass of the block
+  static_assert(PT % PER_ROW == 0 && KC % STEP == 0 && KC <= PT, "copy tiling");
+  const T* kc = reinterpret_cast<const T*>(c.k);
+  const T* vc = reinterpret_cast<const T*>(c.v);
+  const int col = (threadIdx.x % PER_ROW) * VEC;
+  const int row0 = threadIdx.x / PER_ROW;
+  int page[KC / STEP];
+#pragma unroll
+  for (int k = 0; k < KC / STEP; ++k) {
+    int p = p0 + row0 + k * STEP;
+    page[k] = p < pend ? __ldg(g.table + g.page_of(p)) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < KC / STEP; ++k) {
+    int row = row0 + k * STEP, p = p0 + row;
+    bool live = p < pend;
+    int64_t slot = (int64_t)page[k] * g.bs + (p - g.page_of(p) * g.bs);
+    int64_t off = live ? g.kv_base + slot * g.kv_slot + col : 0;
+    int at = LY::CONVERT ? row * LY::RST + col : core_off<DH>(row, col);
+    cp_async16(Ks + at, kc + off, live);
+    cp_async16(Vs + at, vc + off, live);
+  }
+  if (c.ks != nullptr && threadIdx.x < KC) {
+    int p = p0 + threadIdx.x;
+    bool live = p < pend;
+    int64_t o = 0;
+    if (live) {
+      int pi = g.page_of(p);
+      o = g.sc_base + (int64_t)__ldg(g.table + pi) * g.sc_page + (p - pi * g.bs);
+    }
+    cp_async4(kss + threadIdx.x, c.ks + o, live);
+    cp_async4(vss + threadIdx.x, c.vs + o, live);
+  }
+}
+
+// 4 int8 in one word -> 4 bf16 in two words, exactly and on the full-rate
+// integer and f32 pipes (not the quarter-rate conversion unit): each byte,
+// biased to unsigned, becomes the low mantissa bits of 2^23, the bias is
+// subtracted in f32, and the upper half of each f32 (an integer of at
+// most 8 significant bits) is its bf16.
+__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
+                                             uint32_t& hi) {
+  constexpr uint32_t MAGIC = 0x4b000000u;  // 2^23
+  constexpr float BIAS = 8388736.0f;       // 2^23 + 128
+  w ^= 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(w, MAGIC, 0x7540 | i)) - BIAS;
+  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
+  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
+}
+
+// A staged int8 chunk, K and V [KC][DH + 16], -> bf16 core matrices
+// (exact). Consecutive threads take consecutive rows, so the 16-byte
+// reads and writes of 8 threads fall on distinct banks.
+template <int DH>
+__device__ __forceinline__ void convert_chunk(const int8_t* k, const int8_t* v,
+                                              __nv_bfloat16* tk,
+                                              __nv_bfloat16* tv) {
+  for (int i = threadIdx.x; i < 2 * KC * (DH / 16); i += PT) {
+    const int half = i / (KC * (DH / 16));  // 0: K, 1: V
+    const int j = i - half * KC * (DH / 16);
+    const int row = j % KC, col = (j / KC) * 16;
+    uint4 raw = *reinterpret_cast<const uint4*>((half ? v : k) + row * (DH + 16) + col);
+    uint4 a, b;
+    i8x4_to_bf16(raw.x, a.x, a.y);
+    i8x4_to_bf16(raw.y, a.z, a.w);
+    i8x4_to_bf16(raw.z, b.x, b.y);
+    i8x4_to_bf16(raw.w, b.z, b.w);
+    __nv_bfloat16* t = half ? tv : tk;
+    *reinterpret_cast<uint4*>(t + core_off<DH>(row, col)) = a;
+    *reinterpret_cast<uint4*>(t + core_off<DH>(row, col + 8)) = b;
+  }
+}
+
+// One chunk's scores times scale * log2(e) * k_scale; with MASK, keys a
+// row may not see become NEG. cmax: each row's max over this lane's keys.
+// s[4 n + e]: key 8 n + 2 cq + (e & 1) of row i = e >> 1.
+template <bool MASK>
+__device__ __forceinline__ void scale_scores(
+    float (&s)[32], const float* kss, float scale_log2, int cq, int p0,
+    const int (&q_pos)[2], const bool (&row_live)[2], int ctx, int window,
+    float (&cmax)[2]) {
+  cmax[0] = cmax[1] = NEG;
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kl = n * 8 + 2 * cq + h, key = p0 + kl;
+      const float ksc = scale_log2 * kss[kl];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v = s[4 * n + 2 * i + h] * ksc;
+        if (MASK && !(row_live[i] && key <= q_pos[i] && key < ctx &&
+                      (window <= 0 || key > q_pos[i] - window)))
+          v = NEG;
+        s[4 * n + 2 * i + h] = v;
+        cmax[i] = fmaxf(cmax[i], v);
+      }
+    }
+  }
+}
+
+// Two blocks per SM (registers capped at 128): while one block's
+// warpgroups run their softmax, the other's keep the tensor cores busy.
+template <typename T, int DH>
+__global__ void __launch_bounds__(PT, 2) prefill_kernel(
     const __nv_bfloat16* __restrict__ q, Cache c,
     const int* __restrict__ starts, const int* __restrict__ ctx_lens,
     __nv_bfloat16* __restrict__ out, int T_len, int H, int window,
     float scale) {
-  constexpr int DPT = DH / 8;  // output dims per thread in P @ V
-  extern __shared__ __align__(16) float sm[];
-  float* Qs = sm;                            // [ROWS][DH + 4]
-  float* Ks = Qs + ROWS * (DH + 4);          // [C][DH + 4]
-  float* Vs = Ks + C * (DH + 4);             // [C][DH + 4]
-  float* S = Vs + C * (DH + 4);              // [ROWS][C + 1]
-  float* m_s = S + ROWS * (C + 1);
-  float* l_s = m_s + ROWS;
-  float* a_s = l_s + ROWS;
-  float* kss = a_s + ROWS;
-  float* vss = kss + C;
+  using LY = Layout<T, DH>;
+  extern __shared__ __align__(128) unsigned char sm[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(sm);
+  auto stage_k = [&](int s) {
+    return reinterpret_cast<T*>(sm + LY::Q_BYTES + 2 * s * LY::STAGE_BYTES);
+  };
+  auto stage_v = [&](int s) {
+    return reinterpret_cast<T*>(sm + LY::Q_BYTES + (2 * s + 1) * LY::STAGE_BYTES);
+  };
+  float* scales = reinterpret_cast<float*>(sm + LY::SCALE_OFF);  // [2][K, V][KC]
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(sm + LY::TILE_OFF);
 
-  const int b = blockIdx.x, qt = blockIdx.y, hk = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;  // most keys first
   const int G = H / c.Hk;
   const int TQ = ROWS / G;  // query tokens per block
   const int ctx = ctx_lens[b];
   const int start = starts[b];
   const int t0 = qt * TQ;
   const int q_lo = start + t0;
+  const int q_last = q_lo + TQ - 1;
   const int q_hi = min(start + min(t0 + TQ, T_len), ctx);  // exclusive
   const int lo = window > 0 ? max(q_lo - (window - 1), 0) : 0;
+  const int p_begin = (lo / KC) * KC;
+  const int n_chunks = q_hi > q_lo ? (q_hi - p_begin + KC - 1) / KC : 0;
+  const bool tile_full = t0 + TQ <= T_len && q_last < ctx;
+  const float scale_log2 = scale * 1.4426950408889634f;  // exp(x) = 2^(x log2 e)
+  Gather gt;
+  gt.table = c.tables + (int64_t)b * c.W;
+  gt.kv_slot = c.Hk * DH;
+  gt.kv_base = (int64_t)c.layer * c.S * gt.kv_slot + hk * DH;
+  gt.sc_page = c.Hk * c.bs;
+  gt.sc_base = (int64_t)c.layer * c.NP * gt.sc_page + hk * c.bs;
+  gt.bs = c.bs;
+  gt.bs_shift = (c.bs & (c.bs - 1)) == 0 ? __ffs(c.bs) - 1 : -1;
 
-  // stage the query rows: row r = (token r / G, head r % G)
-  for (int i = threadIdx.x; i < ROWS * (DH / 8); i += NT) {
+  // the query rows (zeros past T), then the first chunk
+  for (int i = threadIdx.x; i < ROWS * (DH / 8); i += PT) {
     int r = i / (DH / 8), col = (i % (DH / 8)) * 8;
     int t = t0 + r / G;
-    float f[8];
-    if (t < T_len) {
-      const __nv_bfloat16* src =
-          q + (((int64_t)b * T_len + t) * H + hk * G + r % G) * DH + col;
-      to_float<__nv_bfloat16>(*reinterpret_cast<const uint4*>(src), f);
-    } else {
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[e] = 0.0f;
-    }
-    *reinterpret_cast<float4*>(Qs + r * (DH + 4) + col) =
-        make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(Qs + r * (DH + 4) + col + 4) =
-        make_float4(f[4], f[5], f[6], f[7]);
+    bool live = t < T_len;
+    const __nv_bfloat16* src =
+        live ? q + (((int64_t)b * T_len + t) * H + hk * G + r % G) * DH + col
+             : q;
+    cp_async16(Qs + core_off<DH>(r, col), src, live);
   }
-  if (threadIdx.x < ROWS) {
-    m_s[threadIdx.x] = NEG;
-    l_s[threadIdx.x] = 0.0f;
-  }
-  const int rg = threadIdx.x / 8;  // rows rg*4 .. rg*4+3 (scores and P@V)
-  const int cg = threadIdx.x % 8;  // keys cg*4 .. (scores), dims cg*DPT ..
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DPT; ++j) acc[i][j] = 0.0f;
+  if (c.ks == nullptr)
+    for (int i = threadIdx.x; i < 4 * KC; i += PT) scales[i] = 1.0f;
+  if (n_chunks > 0)
+    issue_chunk<T, DH>(c, gt, p_begin, q_hi, stage_k(0), stage_v(0), scales,
+                       scales + KC);
+  cp_async_commit();
 
-  for (int p0 = (lo / C) * C; p0 < q_hi; p0 += C) {
-    __syncthreads();
-    stage_chunk<T, DH>(c, b, hk, p0, ctx, Ks, Vs, kss, vss);
-    __syncthreads();
-    // scores: 4 rows x 4 keys per thread
-    float dot[4][4];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, cq = lane % 4;
+  // this thread's rows: 16 warp + g + 8 i (warpgroup warp / 4 owns 64)
+  int q_pos[2];
+  bool row_live[2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) dot[i][j] = 0.0f;
-#pragma unroll 4
-    for (int d = 0; d < DH; d += 4) {
-      float4 qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qa[i] = *reinterpret_cast<const float4*>(Qs + (rg * 4 + i) * (DH + 4) + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = *reinterpret_cast<const float4*>(Ks + (cg * 4 + j) * (DH + 4) + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          dot[i][j] += qa[i].x * kb[j].x + qa[i].y * kb[j].y +
-                       qa[i].z * kb[j].z + qa[i].w * kb[j].w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      int r = rg * 4 + i;
-      int q_pos = q_lo + r / G;
-      bool row_live = (t0 + r / G) < T_len && q_pos < ctx;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        int k = cg * 4 + j, key = p0 + k;
-        bool ok = row_live && key <= q_pos && key < ctx &&
-                  (window <= 0 || key > q_pos - window);
-        S[r * (C + 1) + k] = ok ? dot[i][j] * scale * kss[k] : NEG;
-      }
-    }
-    __syncthreads();
-    if (threadIdx.x < ROWS) {
-      int r = threadIdx.x;
-      int q_pos = q_lo + r / G;
-      bool row_live = (t0 + r / G) < T_len && q_pos < ctx;
-      bool ok[C];
-#pragma unroll
-      for (int k = 0; k < C; ++k) {
-        int key = p0 + k;
-        ok[k] = row_live && key <= q_pos && key < ctx &&
-                (window <= 0 || key > q_pos - window);
-      }
-      softmax_row(S + r * (C + 1), ok, vss, &m_s[r], &l_s[r], &a_s[r]);
-    }
-    __syncthreads();
-    // P @ V: 4 rows x DPT dims per thread
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float a = a_s[rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) acc[i][j] *= a;
-    }
-#pragma unroll 4
-    for (int k = 0; k < C; ++k) {
-      float p[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = S[(rg * 4 + i) * (C + 1) + k];
-#pragma unroll
-      for (int j = 0; j < DPT; j += 4) {
-        float4 v = *reinterpret_cast<const float4*>(Vs + k * (DH + 4) + cg * DPT + j);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] += p[i] * v.x;
-          acc[i][j + 1] += p[i] * v.y;
-          acc[i][j + 2] += p[i] * v.z;
-          acc[i][j + 3] += p[i] * v.w;
-        }
-      }
-    }
+  for (int i = 0; i < 2; ++i) {
+    int r = warp * 16 + g + 8 * i;
+    q_pos[i] = q_lo + r / G;
+    row_live[i] = t0 + r / G < T_len && q_pos[i] < ctx;
   }
-  __syncthreads();
+  // O: 8-wide output tiles n, o[4 n + e] at row i = e >> 1, column
+  // 8 n + 2 cq + (e & 1)
+  float o[DH / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int r = rg * 4 + i;
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+  float m[2] = {NEG, NEG}, l[2] = {0.0f, 0.0f};  // l: this lane's part
+  const __nv_bfloat16* q_wg = Qs + core_off<DH>(64 * (warp / 4), 0);
+
+  // One barrier per chunk (two for int8): at chunk j the copies of
+  // j + 1 are in flight; an int8 chunk is converted into bf16 first.
+  for (int j = 0; j < n_chunks; ++j) {
+    const int st = j & 1;
+    const int p0 = p_begin + j * KC;
+    cp_async_wait_all();  // chunk j (and Q) has landed
+    fence_to_async();
+    __syncthreads();      // ... for every thread; chunk j - 1 is done
+    if (j + 1 < n_chunks)
+      issue_chunk<T, DH>(c, gt, p0 + KC, q_hi, stage_k(st ^ 1),
+                         stage_v(st ^ 1), scales + (st ^ 1) * 2 * KC,
+                         scales + (st ^ 1) * 2 * KC + KC);
+    cp_async_commit();
+    const __nv_bfloat16* Kt;
+    const __nv_bfloat16* Vt;
+    if constexpr (LY::CONVERT) {
+      convert_chunk<DH>(reinterpret_cast<const int8_t*>(stage_k(st)),
+                        reinterpret_cast<const int8_t*>(stage_v(st)), tiles,
+                        tiles + KC * DH);
+      fence_to_async();
+      __syncthreads();
+      Kt = tiles;
+      Vt = tiles + KC * DH;
+    } else {
+      Kt = reinterpret_cast<const __nv_bfloat16*>(stage_k(st));
+      Vt = reinterpret_cast<const __nv_bfloat16*>(stage_v(st));
+    }
+    const float* kss = scales + st * 2 * KC;
+    const float* vss = kss + KC;
+
+    // S = Q K^T on the tensor cores, 16 dims a step
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wg_qk(s, wg_desc(q_wg + kk * 128, 128, DH * 16),
+            wg_desc(Kt + kk * 128, 128, DH * 16), kk);
+    wg_commit_and_wait();
+
+    // scale (log2 units), mask (only on chunks that cross an edge), row max
+    float cmax[2];
+    if (tile_full && p0 + KC - 1 <= q_lo && (window <= 0 || p0 > q_last - window))
+      scale_scores<false>(s, kss, scale_log2, cq, p0, q_pos, row_live, ctx, window, cmax);
+    else
+      scale_scores<true>(s, kss, scale_log2, cq, p0, q_pos, row_live, ctx, window, cmax);
+    // a row that has seen no valid key keeps m = NEG and takes its
+    // exponents against 0, so its NEG scores give p = 0 exactly
+    float alpha[2], base[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      cmax[i] = fmaxf(cmax[i], __shfl_xor_sync(0xffffffffu, cmax[i], 1));
+      cmax[i] = fmaxf(cmax[i], __shfl_xor_sync(0xffffffffu, cmax[i], 2));
+      float m_new = fmaxf(m[i], cmax[i]);
+      base[i] = m_new == NEG ? 0.0f : m_new;
+      alpha[i] = ex2(m[i] - base[i]);
+      m[i] = m_new;
+    }
+
+    // p = 2^(s - m); l sums p, P V takes bf16(p * v_scale), packed from
+    // the score layout straight into A fragments
+    float rs[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = ex2(s[4 * n + e] - base[e >> 1]);
+        rs[e >> 1] += p;
+        s[4 * n + e] = p * vss[n * 8 + 2 * cq + (e & 1)];
+      }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rs[i];
+    if (alpha[0] != 1.0f || alpha[1] != 1.0f) {  // a row max moved
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        o[4 * n + 0] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+    }
+
+    // O += P V on the tensor cores, 16 keys a step
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg_pv(o, pa[kk], wg_desc(Vt + kk * 2 * (DH / 8) * 64, DH * 16, 128));
+    wg_commit_and_wait();
+  }
+  cp_async_wait_all();  // no copy may land after the block exits
+
+  // O / l; a row with no valid key has O = 0 and l = 0: exact zeros
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    int r = warp * 16 + g + 8 * i;
     int t = t0 + r / G;
     if (t >= T_len) continue;
-    float inv_l = 1.0f / fmaxf(l_s[r], 1e-9f);
+    float inv_l = 1.0f / fmaxf(l[i], 1e-9f);
     __nv_bfloat16* dst =
-        out + (((int64_t)b * T_len + t) * H + hk * G + r % G) * DH + cg * DPT;
+        out + (((int64_t)b * T_len + t) * H + hk * G + r % G) * DH + 2 * cq;
 #pragma unroll
-    for (int j = 0; j < DPT; ++j) dst[j] = __float2bfloat16(acc[i][j] * inv_l);
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
+          o[4 * n + 2 * i] * inv_l, o[4 * n + 2 * i + 1] * inv_l);
   }
 }
+
+}  // namespace k3
 
 template <typename T, int DH>
 int run_prefill(const void* q, const Cache& c, const void* starts,
                 const void* ctx, void* out, int B, int T_len, int H,
                 int window, float scale, cudaStream_t st) {
-  constexpr int bytes = prefill_smem_bytes<DH>();
-  cudaFuncSetAttribute(prefill_kernel<T, DH>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  int TQ = ROWS / (H / c.Hk);
-  dim3 grid(B, (T_len + TQ - 1) / TQ, c.Hk);
-  prefill_kernel<T, DH><<<grid, NT, bytes, st>>>(
+  constexpr int bytes = k3::Layout<T, DH>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      k3::prefill_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (err != cudaSuccess) return (int)err;
+  int TQ = k3::ROWS / (H / c.Hk);
+  dim3 grid(c.Hk, B, (T_len + TQ - 1) / TQ);
+  k3::prefill_kernel<T, DH><<<grid, k3::PT, bytes, st>>>(
       (const __nv_bfloat16*)q, c, (const int*)starts, (const int*)ctx,
       (__nv_bfloat16*)out, T_len, H, window, scale);
   return (int)cudaGetLastError();

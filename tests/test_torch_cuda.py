@@ -137,25 +137,48 @@ def test_decode_kernel_matches_plain(gen, Dh, H, Hk, bs, quantized, window):
     assert (got[2] == 0).all()  # ctx 0: exact zeros
 
 
-@pytest.mark.parametrize("Dh", [64, 128])
-@pytest.mark.parametrize("H,Hk", [(8, 8), (8, 2), (8, 1)])
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("window", [None, 40])
-@pytest.mark.parametrize("start", [0, 70])
-def test_prefill_kernel_matches_plain(gen, Dh, H, Hk, quantized, window, start):
-    T, bs, L, layer = 100, 16, 2, 1
-    chunk = [100, 37, 0]
+def _prefill_case(gen, T, chunk, start, bs, H, Hk, Dh, quantized, window):
+    """Sequences whose chunks of ``chunk[b]`` real tokens (0: a padded
+    row) start at ``start`` in a T-token rectangle, against the plain
+    version; returns the kernel's output."""
+    L, layer = 2, 1
+    B = len(chunk)
     ctx_list = [start + c if c else 0 for c in chunk]
-    tables, kv, sc = _paged(gen, 3, ctx_list, bs, L, Hk, Dh, quantized)
-    starts = torch.tensor([start, start, 0], dtype=torch.int32, device="cuda")
+    tables, kv, sc = _paged(gen, B, ctx_list, bs, L, Hk, Dh, quantized)
+    starts = torch.tensor([start if c else 0 for c in chunk], dtype=torch.int32, device="cuda")
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
-    q = torch.randn(3, T, H, Dh, device="cuda", generator=gen).to(torch.bfloat16)
+    q = torch.randn(B, T, H, Dh, device="cuda", generator=gen).to(torch.bfloat16)
     got = pa.paged_attention_prefill_stacked(q, kv[0], kv[1], layer, tables, starts, ctx, bs, window, *sc)
     pos = starts.long()[:, None] + torch.arange(T, device="cuda")[None]
     ref = pa.paged_attention_plain(q, kv[0], kv[1], layer, tables, pos, ctx, bs, window, *sc)
     torch.cuda.synchronize()
     _close_per_sequence(got, ref)
+    return got
+
+
+# T = 100 is not a multiple of the query tile at any G; start 70 is not
+# page-aligned at either page size; 16-token pages put four pages in a
+# 64-key chunk, 128-token pages a chunk inside one page
+@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("H,Hk", [(8, 8), (8, 2), (32, 8), (8, 1)])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("start", [0, 70])
+def test_prefill_kernel_matches_plain(gen, Dh, H, Hk, bs, quantized, window, start):
+    got = _prefill_case(gen, 100, [100, 37, 0], start, bs, H, Hk, Dh, quantized, window)
     assert (got[1, 37:] == 0).all() and (got[2] == 0).all()  # padded rows
+
+
+# a long second chunk: each tile runs up to 28 double-buffered key chunks,
+# most of them unmasked, and the block table is far wider than a chunk
+@pytest.mark.parametrize("H,Hk", [(32, 8), (8, 1)])
+@pytest.mark.parametrize("bs", [16, 128])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [None, 300])
+def test_prefill_kernel_long_context(gen, H, Hk, bs, quantized, window):
+    got = _prefill_case(gen, 256, [256, 200, 0], 1536, bs, H, Hk, 128, quantized, window)
+    assert (got[1, 200:] == 0).all() and (got[2] == 0).all()  # padded rows
 
 
 def test_attention_rejects_what_the_kernel_does_not_take(gen):

@@ -40,16 +40,16 @@ def _tables(rng, ctx_lens, bs, n_pages):
     return tables
 
 
-def _caches(rng, n_pages, bs, quantized):
+def _caches(rng, n_pages, bs, quantized, hk=HK, dh=DH):
     """(torch caches + scales, jax caches + scales) holding equal values."""
     S = n_pages * bs
     if quantized:
-        vals = [rng.integers(-127, 128, (L, S, HK, DH)).astype(np.int8) for _ in range(2)]
-        scs = [rng.uniform(0.005, 0.03, (L, n_pages, HK, bs)).astype(np.float32) for _ in range(2)]
+        vals = [rng.integers(-127, 128, (L, S, hk, dh)).astype(np.int8) for _ in range(2)]
+        scs = [rng.uniform(0.005, 0.03, (L, n_pages, hk, bs)).astype(np.float32) for _ in range(2)]
         t = [torch.from_numpy(v) for v in vals] + [torch.from_numpy(s) for s in scs]
         j = [jnp.asarray(v) for v in vals] + [jnp.asarray(s) for s in scs]
         return t, j
-    vals = [torch.from_numpy(rng.standard_normal((L, S, HK, DH)).astype(np.float32)).to(torch.bfloat16)
+    vals = [torch.from_numpy(rng.standard_normal((L, S, hk, dh)).astype(np.float32)).to(torch.bfloat16)
             for _ in range(2)]
     return vals + [None, None], [jnp.asarray(v.float().numpy()).astype(jnp.bfloat16) for v in vals] + [None, None]
 
@@ -110,20 +110,35 @@ def test_decode_matches_pallas_and_gather_path(bs, window, quantized):
     assert torch.equal(one, got)
 
 
+# (starts, chunk_lens, layout): the first two are the base layout (H=4,
+# Hk=2, Dh=16, 8-token pages, T=16); the others are the layouts the card
+# kernel is held to (tests/test_torch_cuda.py): Dh=128 with G=4, and G=8,
+# at 16-token pages with starts that are not page-aligned
+BASE = dict(H=H, Hk=HK, Dh=DH, bs=8, T=16)
+PREFILL_CASES = [
+    pytest.param([0, 0], [16, 9], BASE, id="starts0-chunk_lens0"),
+    pytest.param([16, 5], [16, 11], BASE, id="starts1-chunk_lens1"),
+    pytest.param([0, 21], [16, 11], dict(H=8, Hk=2, Dh=128, bs=16, T=16), id="g4-dh128-bs16-unaligned"),
+    pytest.param([5, 37], [16, 13], dict(H=8, Hk=1, Dh=64, bs=16, T=16), id="g8-dh64-bs16-unaligned"),
+    pytest.param([19, 0], [24, 17], dict(H=16, Hk=2, Dh=128, bs=16, T=24), id="g8-dh128-bs16-unaligned"),
+]
+
+
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("window", [None, 10])
-@pytest.mark.parametrize("starts,chunk_lens", [([0, 0], [16, 9]), ([16, 5], [16, 11])])
-def test_prefill_matches_pallas_and_gather_path(starts, chunk_lens, window, quantized):
+@pytest.mark.parametrize("starts,chunk_lens,layout", PREFILL_CASES)
+def test_prefill_matches_pallas_and_gather_path(starts, chunk_lens, layout, window, quantized):
     """First chunks and second chunks (start_pos > 0), a ragged row whose
-    tail is padding, bf16 and int8 caches, window on and off."""
-    bs, T = 8, 16
+    tail is padding, bf16 and int8 caches, window on and off, at every
+    GQA group and head width the card kernel takes."""
+    bs, T = layout["bs"], layout["T"]
     rng = np.random.default_rng(sum(starts) + (window or 0) + quantized)
     ctx_lens = [s + c for s, c in zip(starts, chunk_lens)] + [0]  # + a padded row
     n_pages = sum(-(-c // bs) for c in ctx_lens) + 2
     tables = _tables(rng, ctx_lens, bs, n_pages)
-    tc, jc = _caches(rng, n_pages, bs, quantized)
+    tc, jc = _caches(rng, n_pages, bs, quantized, layout["Hk"], layout["Dh"])
     B = len(ctx_lens)
-    qt, qj = _q(rng, (B, T, H, DH))
+    qt, qj = _q(rng, (B, T, layout["H"], layout["Dh"]))
     st = np.asarray(starts + [0], np.int32)
     ctx = np.asarray(ctx_lens, np.int32)
     layer = 1
