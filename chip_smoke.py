@@ -9,7 +9,8 @@ and the script exits non-zero:
 1. device: require CUDA; print the card's name and power limit
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``).
 2. build: compile ``dynamo_tpu_torch/csrc/*.cu`` with nvcc, one process
-   per source in parallel; print the build time and ptxas's resource lines.
+   per source in parallel; print the build time, ptxas's resource lines
+   and warnings, and each K1 variant's dynamic shared memory.
 3. kernels: hold each CUDA kernel against its plain PyTorch version at the
    serving path's shapes (Llama-8B: D=4096, F=14336, V=128256, H=32, Hk=8,
    Dh=128), with the tolerance stated per kernel, and time kernel, plain
@@ -17,7 +18,9 @@ and the script exits non-zero:
    runs, L2 flushed before each run). ``bound_ms`` is the least time the
    card could take: the larger of bytes moved over memory bandwidth and
    operations over the bf16 tensor rate, from the H100 SXM data sheet
-   (any other card raises). Attention is held within 2^-7 relative (one
+   (any other card raises). Each K1 row also gives its launch plan,
+   ``vs_library`` (kernel / library time) and ``of_bound`` (bound /
+   kernel time). Attention is held within 2^-7 relative (one
    bf16 ulp of the output) plus 2^-7 x max|ref| absolute: its outputs
    average over hundreds of keys, so a fixed absolute limit would be the
    size of a typical value.
@@ -145,10 +148,11 @@ def check_qmm(torch, bench: Bench, gen, results: dict) -> None:
         ("gate/up", D, F),
         ("w_down", F, D),
     ]
-    # every (K, N) in every epilogue, at decode (8, 64) and prefill (1024) M
-    cases = [(M, name, kind, K, N) for M in (8, 64, 1024) for name, K, N in shapes
+    # every (K, N) in every epilogue, at decode (8, 32: the profile's
+    # batch, 64) and prefill (1024) M
+    cases = [(M, name, kind, K, N) for M in (8, 32, 64, 1024) for name, K, N in shapes
              for kind in ("", "residual", "gate_up")]
-    cases += [(M, "lm_head", "lm_head", D, V) for M in (8, 64)]
+    cases += [(M, "lm_head", "lm_head", D, V) for M in (8, 32, 64)]
     for M, wname, kind, K, N in cases:
         x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
         w, s = rand_w(K, N), rand_s(K, N)
@@ -181,11 +185,15 @@ def check_qmm(torch, bench: Bench, gen, results: dict) -> None:
         c = compare(torch, out, ref, rtol=rtol, atol=2 ** -9 * ref.float().abs().max().item(), mag=mag)
         nbytes = M * K * 2 + nw * (K * N + N * 4) + M * N * 2 + (M * N * 2 if kind == "residual" else 0)
         bound, by = bench.bound_ms(nbytes, 2.0 * M * N * K * nw)
+        plan = qm.launch_plan(M, N, K, "gate_up" if kind == "gate_up" else "")
         row = {
             "wrapper": wrapper, "shape": f"{wname} {kind or 'plain'} M={M} K={K} N={N}",
             "kernel_ms": bench.time_ms(fn), "plain_ms": bench.time_ms(plain, reps=3),
             "library_ms": bench.time_ms(lib), "bound_ms": bound, "bound_by": by, **c,
+            "plan": {"config": plan.config, "bn": plan.bn, "splits": plan.splits, "blocks": plan.blocks},
         }
+        row["vs_library"] = row["kernel_ms"] / row["library_ms"]
+        row["of_bound"] = bound / row["kernel_ms"]
         log("check " + json.dumps(row))
         results.setdefault(wrapper, []).append(row)
         if not c["ok"]:
@@ -675,8 +683,20 @@ def main() -> int:
     log(f"build_seconds {time.monotonic() - t0:.1f}")
     for src, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "spill", "Compiling entry", "warning")):
                 log(f"ptxas {src}: {line.strip()}")
+    from dynamo_tpu_torch.ops import qmatmul as qm
+
+    lib = qm._lib()
+    for cfg, variant in enumerate(("prefill", "decode", "decode narrow")):
+        for epi, kind in enumerate(("plain", "residual", "gate_up")):
+            smem = lib.qmm_smem_bytes(cfg, epi)
+            if smem:
+                log(f"qmm {variant} {kind}: {smem} bytes of dynamic shared memory a block")
+        # what launch_plan assumes (_CLUSTERS_AT_ONCE) against this card
+        held = [lib.qmm_max_clusters(cfg, s) for s in range(1, len(qm._CLUSTERS_AT_ONCE[cfg]) + 1)]
+        log(f"qmm {variant}: clusters of 1.. blocks held at once {held}; plan assumes "
+            f"{list(qm._CLUSTERS_AT_ONCE[cfg])}")
 
     results: dict = {}
     gen = torch.Generator(device="cuda")

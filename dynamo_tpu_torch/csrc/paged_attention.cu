@@ -61,6 +61,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int NT = 128;   // threads per block
@@ -250,43 +252,20 @@ __global__ void __launch_bounds__(NT) decode_kernel(
 // ---------------------------------------------------------------- K3 --
 namespace k3 {
 
+using namespace sm90;
+
 constexpr int KC = 64;           // keys per chunk
 constexpr int NWG = 2;           // warpgroups per block, 64 query rows each
 constexpr int PT = 128 * NWG;    // threads per block
 constexpr int ROWS = 64 * NWG;   // query rows (tokens x group) per block
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16- and 4-byte global -> shared copies; with live false nothing is read
-// and the destination is zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0));
-}
-
+// 4-byte global -> shared copy; with live false the destination is
+// zero-filled (src must still be a valid address).
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool live) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(live ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// this thread's shared-memory writes, made visible to the tensor cores'
-// reads (wgmma reads shared memory through the async proxy)
-__device__ __forceinline__ void fence_to_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float ex2(float x) {  // 2^x
@@ -298,33 +277,6 @@ __device__ __forceinline__ float ex2(float x) {  // 2^x
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// --- wgmma (sm_90a) ---
-// Operands in shared memory are stored as core matrices of 8 rows x 16
-// bytes (128 contiguous bytes), without swizzle, core matrices ordered
-// row-group major: element (r, c) of a [rows][DH] bf16 tile is at
-// core_off<DH>(r, c). A descriptor gives the start address and the byte
-// distances between core matrices along K (lbo) and along M or N (sbo).
-template <int DH>
-__device__ __forceinline__ int core_off(int r, int c) {
-  return ((r >> 3) * (DH / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
-}
-
-__device__ __forceinline__ uint64_t wg_desc(const void* p, int lbo, int sbo) {
-  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
-         (uint64_t)((lbo & 0x3FFFF) >> 4) << 16 |
-         (uint64_t)((sbo & 0x3FFFF) >> 4) << 32;
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wg_commit_and_wait() {
-  asm volatile(
-      "wgmma.commit_group.sync.aligned;\n"
-      "wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 #define K3_R8(a) "+f"(a[0]), "+f"(a[1]), "+f"(a[2]), "+f"(a[3]), \
@@ -449,24 +401,6 @@ __device__ __forceinline__ void issue_chunk(const Cache& c, const Gather& g,
     cp_async4(kss + threadIdx.x, c.ks + o, live);
     cp_async4(vss + threadIdx.x, c.vs + o, live);
   }
-}
-
-// 4 int8 in one word -> 4 bf16 in two words, exactly and on the full-rate
-// integer and f32 pipes (not the quarter-rate conversion unit): each byte,
-// biased to unsigned, becomes the low mantissa bits of 2^23, the bias is
-// subtracted in f32, and the upper half of each f32 (an integer of at
-// most 8 significant bits) is its bf16.
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                             uint32_t& hi) {
-  constexpr uint32_t MAGIC = 0x4b000000u;  // 2^23
-  constexpr float BIAS = 8388736.0f;       // 2^23 + 128
-  w ^= 0x80808080u;
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = __uint_as_float(__byte_perm(w, MAGIC, 0x7540 | i)) - BIAS;
-  lo = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632);
-  hi = __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632);
 }
 
 // A staged int8 chunk, K and V [KC][DH + 16], -> bf16 core matrices

@@ -3,10 +3,10 @@ with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface (pointers, ints, the
 stream) and compiles on its own into ``build/dynamo_tpu_torch/lib<name>-
-<hash>.so`` at the repository root, where ``<hash>`` covers the source
-and the flags: an edited source rebuilds, an unchanged one loads the
-library already there. No PyTorch headers are included, which keeps a
-build to seconds. ``build_all`` starts one ``nvcc`` per source at once.
+<hash>.so`` at the repository root, where ``<hash>`` covers the source,
+the shared headers (``csrc/*.cuh``) and the flags: an edited source or
+header rebuilds, an unchanged one loads the library already there. No
+PyTorch headers are included, which keeps a build to seconds. ``build_all`` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the module imports on machines without
 ``nvcc`` or a GPU, where only the kernels' plain versions are used.
@@ -46,9 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{h}.so"
+    h = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # any may be included
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str) -> tuple[Path, Path, subprocess.Popen] | None:

@@ -17,13 +17,14 @@ product. Remaining differences from the reference are accumulation order.
 Each wrapper launches the CUDA kernel for CUDA tensors (bf16 activations)
 and runs its plain version (``*_plain``) for CPU tensors; there is no
 fallback from one to the other. ``<wrapper>.launches`` counts kernel
-launches.
+launches. ``launch_plan`` is the kernel's launch configuration as a pure
+function of the shape, so that the CPU tests can check it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -32,11 +33,21 @@ from dynamo_tpu_torch.ops import _build
 
 _EPI = {"": 0, "residual": 1, "gate_up": 2}
 _ACT = {"silu": 0, "gelu": 1}
-# the kernel's tile geometry (csrc/qmm.cu: BM, BN, BK)
-_BM, _BN, _BK = 64, 64, 64
-# blocks worth launching before K is split across blocks: ~2 per SM
-_TARGET_BLOCKS = 264
-_MAX_SPLITS = 16
+# the kernel's launch geometry (csrc/qmm.cu: BK, Cfg, MAX_SPLITS)
+_BK = 64  # K per pipeline step
+SMS = 132  # streaming multiprocessors of an H100 SXM
+DECODE_MAX_M = 64  # M at or below: the decode configuration
+MAX_PORTABLE_CLUSTER = 8
+MAX_CLUSTER = 16  # needs the non-portable cluster size attribute above 8
+# kernel variant: (configuration, rows per block, W columns staged per step)
+_VARIANTS = (("prefill", 128, 256), ("decode", 64, 128), ("decode", 64, 64))
+# Clusters of 1, 2, ... blocks that one H100 SXM (132 SMs) holds at once,
+# per variant: cudaOccupancyMaxActiveClusters, which chip_smoke.py prints
+# (csrc/qmm.cu: qmm_max_clusters). A cluster's blocks share a GPC, so
+# large clusters strand SMs: 14 decode clusters of 16 fit, not 16.5. A
+# prefill block fills its SM, so its clusters stop at the portable 8.
+_DECODE_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30, 23, 21, 16, 16, 14, 14, 14, 14)
+_CLUSTERS_AT_ONCE = ((132, 66, 39, 30, 22, 17, 15, 15), _DECODE_CLUSTERS, _DECODE_CLUSTERS)
 
 
 def act_fn(name: str, g: torch.Tensor) -> torch.Tensor:
@@ -74,22 +85,69 @@ def qmm_gate_up_plain(x2, w_gate, gate_scale, w_up, up_scale, act="silu"):
 # ---------------------------------------------------------------------------
 
 
-def split_plan(M: int, N: int, K: int) -> tuple[int, int]:
-    """(splits, K per split): split K only when the output tiles alone
-    leave the card short of blocks (decode); each split a multiple of BK."""
-    tiles = -(-M // _BM) * -(-N // _BN)
+class Plan(NamedTuple):
+    variant: int  # kernel instance (csrc/qmm.cu: CFG_*)
+    config: str  # "prefill" or "decode"
+    bm: int  # output rows per block
+    bn: int  # output columns per block
+    splits: int  # blocks of one cluster that split K
+    grid: tuple[int, int]  # (M tiles x splits, N tiles)
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def nonportable(self) -> bool:
+        return self.splits > MAX_PORTABLE_CLUSTER
+
+
+def launch_plan(M: int, N: int, K: int, epilogue: str = "") -> Plan:
+    """The kernel's configuration for x [M, K] @ W [K, N]. Prefill above
+    DECODE_MAX_M rows, decode at or below. Decode stages 128 W columns a
+    step (64 of each weight for gate_up), or 64 where N is too narrow for
+    128-column tiles to fill the card even split 16 ways. K is split
+    across the blocks of a cluster as far as every cluster still runs at
+    once (a second wave of clusters would double the time)."""
+    two = epilogue == "gate_up"
+    if M > DECODE_MAX_M:
+        variant = 0
+    elif two or -(-N // 128) * MAX_CLUSTER >= SMS:
+        variant = 1
+    else:
+        variant = 2
+    config, bm, staged = _VARIANTS[variant]
+    bn = staged // 2 if two else staged
+    tiles_m, tiles_n = -(-M // bm), -(-N // bn)
+    capacity = _CLUSTERS_AT_ONCE[variant]
+    splits = 1
+    for s in range(2, min(len(capacity), -(-K // _BK)) + 1):
+        if tiles_m * tiles_n <= capacity[s - 1]:
+            splits = s
+    return Plan(variant, config, bm, bn, splits, (tiles_m * splits, tiles_n))
+
+
+def clusters_at_once(plan: Plan) -> int:
+    """How many of the plan's clusters the card runs at once."""
+    return _CLUSTERS_AT_ONCE[plan.variant][plan.splits - 1]
+
+
+def split_steps(K: int, splits: int) -> list[range]:
+    """The 64-deep K steps each cluster rank runs (the kernel's formula)."""
     nk = -(-K // _BK)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), nk, _MAX_SPLITS))
-    kps = -(-nk // splits) * _BK
-    return -(-K // kps), kps
+    return [range(r * nk // splits, (r + 1) * nk // splits) for r in range(splits)]
 
 
 def _lib():
     lib = _build.library("qmm")
     if not getattr(lib, "_typed", False):
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.qmm_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
+        lib.qmm_launch.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i, i, p]
         lib.qmm_launch.restype = ctypes.c_int
+        lib.qmm_smem_bytes.argtypes = [i, i]
+        lib.qmm_smem_bytes.restype = ctypes.c_int
+        lib.qmm_max_clusters.argtypes = [i, i]
+        lib.qmm_max_clusters.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -121,11 +179,7 @@ def _launch(x2, weights, scales, residual2, fused: str, act: str) -> torch.Tenso
     M, K = x2.shape
     N = weights[0].shape[1]
     out = torch.empty((M, N), dtype=x2.dtype, device=x2.device)
-    splits, kps = split_plan(M, N, K)
-    part = None
-    if splits > 1:
-        n_planes = splits * (2 if fused == "gate_up" else 1)
-        part = torch.empty((n_planes, M, N), dtype=torch.float32, device=x2.device)
+    plan = launch_plan(M, N, K, fused)
     w2 = weights[1] if fused == "gate_up" else None
     s2 = scales[1] if fused == "gate_up" else None
     rc = _lib().qmm_launch(
@@ -133,8 +187,7 @@ def _launch(x2, weights, scales, residual2, fused: str, act: str) -> torch.Tenso
         w2.data_ptr() if w2 is not None else None,
         s2.data_ptr() if s2 is not None else None,
         residual2.data_ptr() if residual2 is not None else None,
-        out.data_ptr(), part.data_ptr() if part is not None else None,
-        M, N, K, _EPI[fused], _ACT[act], splits, kps,
+        out.data_ptr(), M, N, K, _EPI[fused], _ACT[act], plan.variant, plan.splits,
         _build.stream_ptr(x2.device),
     )
     _build.check(rc, "qmm_launch")

@@ -7,8 +7,9 @@ JAX installed:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 Shapes are small and ragged, to reach the kernels' edge handling that the
-serving shapes never do: M, N and K not multiples of the tiles, split-K,
-every GQA group size, both head widths, both page sizes.
+serving shapes never do: M, N and K not multiples of the tiles, both K1
+configurations and its cluster split-K, every GQA group size, both head
+widths, both page sizes.
 
 Tolerances: K1 within 2^-7 relative (about one bf16 ulp) plus 2^-9 x
 max|ref| (2^-6 relative for gate_up: its activation is rounded twice;
@@ -51,16 +52,25 @@ def _close(got, ref, rtol, atol_frac=2 ** -9, mag=None):
     assert excess.max().item() <= 0, excess.max().item()
 
 
-@pytest.mark.parametrize("M,K,N", [(1, 64, 64), (5, 200, 100), (13, 4096, 1024),
-                                   (70, 640, 4096), (129, 1536, 192)])
-@pytest.mark.parametrize("variant", ["plain", "residual", "gate_up_silu", "gate_up_gelu", "lm_head"])
-def test_qmm_kernel_matches_plain(gen, M, K, N, variant):
+def _qmm_operands(gen, M, K, N):
     x = torch.randn(M, K, device="cuda", generator=gen).to(torch.bfloat16)
     w = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda", generator=gen)
     w2 = torch.randint(-127, 128, (K, N), dtype=torch.int8, device="cuda", generator=gen)
     s = torch.rand(N, device="cuda", generator=gen) / (64 * math.sqrt(K)) + 1e-5
     s2 = torch.rand(N, device="cuda", generator=gen) / (64 * math.sqrt(K)) + 1e-5
     r = torch.randn(M, N, device="cuda", generator=gen).to(torch.bfloat16)
+    return x, w, w2, s, s2, r
+
+
+# ragged M, N and K; M = 64 and 65 on either side of the decode/prefill
+# threshold; (64, 4096, 1024) splits K over a cluster of 16; (200, 512,
+# 392) is a prefill tile with a ragged N tail
+@pytest.mark.parametrize("M,K,N", [(1, 64, 64), (5, 200, 100), (13, 4096, 1024),
+                                   (70, 640, 4096), (129, 1536, 192), (64, 4096, 1024),
+                                   (64, 1024, 4096), (65, 1024, 4096), (200, 512, 392)])
+@pytest.mark.parametrize("variant", ["plain", "residual", "gate_up_silu", "gate_up_gelu", "lm_head"])
+def test_qmm_kernel_matches_plain(gen, M, K, N, variant):
+    x, w, w2, s, s2, r = _qmm_operands(gen, M, K, N)
     if variant == "plain":
         got, ref = qm.qmm(x, w, s), qm.qmm_plain(x, w, s)
     elif variant == "residual":
@@ -76,6 +86,22 @@ def test_qmm_kernel_matches_plain(gen, M, K, N, variant):
         _close(got, ref, rtol=2 ** -6)
         return
     _close(got, ref, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("variant", ["plain", "residual", "gate_up"])
+def test_qmm_split_k_is_deterministic(gen, variant):
+    """A cluster sums its partial tiles in rank order: two launches agree
+    bit for bit."""
+    M, K, N = 64, 4096, 1024
+    assert qm.launch_plan(M, N, K, variant if variant != "plain" else "").splits > 1
+    x, w, w2, s, s2, r = _qmm_operands(gen, M, K, N)
+    if variant == "gate_up":
+        run = lambda: qm.qmm_gate_up(x, w, s, w2, s2)  # noqa: E731
+    else:
+        run = lambda: qm.qmm(x, w, s, residual=r if variant == "residual" else None)  # noqa: E731
+    a, b = run(), run()
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 def test_qmm_counts_launches_and_checks_operands(gen):

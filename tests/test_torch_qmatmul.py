@@ -174,11 +174,32 @@ def test_matches_interpreted_pallas_kernel_within_ulps(variant):
     _assert_within_ulp(got, ref, mag, **tol)
 
 
-def test_split_plan_covers_k_in_whole_tiles():
-    for M, Nn, Kk in [(8, 1024, 4096), (64, 4096, 14336), (1024, 14336, 4096), (5, 100, 70)]:
-        splits, kps = tqm.split_plan(M, Nn, Kk)
-        assert kps % 64 == 0 and splits >= 1
-        assert (splits - 1) * kps < Kk <= splits * kps
+# (K, N, epilogue) of the 8B serving path: wq/wo, wk/wv, gate/up, w_down, lm_head
+SERVING = {"wq/wo": (4096, 4096, ""), "wk/wv": (4096, 1024, ""), "gate_up": (4096, 14336, "gate_up"),
+           "w_down": (14336, 4096, "residual"), "lm_head": (4096, 128256, "")}
+# the card tests' shapes (M, K, N), ragged ones included
+CARD_SHAPES = [(1, 64, 64), (5, 200, 100), (13, 4096, 1024), (70, 640, 4096), (129, 1536, 192),
+               (64, 4096, 1024), (64, 1024, 4096), (65, 1024, 4096), (200, 512, 392)]
+PLAN_CASES = ([(M, *SERVING[name], name) for name in SERVING for M in (1, 8, 32, 64, 65, 1024, 2048)]
+              + [(M, K, N, epi, "card") for M, K, N in CARD_SHAPES for epi in ("", "residual", "gate_up")])
+
+
+@pytest.mark.parametrize("M,K,N,epi,name", PLAN_CASES)
+def test_launch_plan(M, K, N, epi, name):
+    plan = tqm.launch_plan(M, N, K, epi)
+    # one K range per cluster rank, whole 64-deep steps, no gap, no overlap
+    ranges = tqm.split_steps(K, plan.splits)
+    assert len(ranges) == plan.splits and all(len(r) > 0 for r in ranges)
+    assert [k for r in ranges for k in r] == list(range(-(-K // 64)))
+    assert plan.splits <= (tqm.MAX_CLUSTER if plan.nonportable else tqm.MAX_PORTABLE_CLUSTER)
+    assert plan.grid[0] % plan.splits == 0
+    assert plan.grid == (-(-M // plan.bm) * plan.splits, -(-N // plan.bn))
+    if plan.splits > 1:  # every cluster runs at once: no second wave
+        assert plan.blocks // plan.splits <= tqm.clusters_at_once(plan)
+    assert plan.config == ("decode" if M <= tqm.DECODE_MAX_M else "prefill")
+    assert plan.bm == (64 if plan.config == "decode" else 128)
+    if M == 64 and name != "card":
+        assert plan.blocks >= tqm.SMS  # the split fills the card at decode
 
 
 def test_gate_up_rejects_unknown_activation():
