@@ -15,7 +15,9 @@ and the script exits non-zero:
    serving path's shapes (Llama-8B: D=4096, F=14336, V=128256, H=32, Hk=8,
    Dh=128), with the tolerance stated per kernel, and time kernel, plain
    version and one PyTorch library call (CUDA events, median of warm
-   runs, L2 flushed before each run). ``bound_ms`` is the least time the
+   runs, L2 flushed before each run). K2 runs at three batches (B=64,
+   contexts 128-4096; B=8 at 8192; B=32 at 129-192), each with its
+   ``decode_plan`` printed. ``bound_ms`` is the least time the
    card could take: the larger of bytes moved over memory bandwidth and
    operations over the bf16 tensor rate, from the H100 SXM data sheet
    (any other card raises). Each K1 row also gives its launch plan,
@@ -36,7 +38,8 @@ and the script exits non-zero:
    of every kernel must have grown during this phase alone.
 6. profile: at the same 8B geometry under ``torch.profiler``, a steady
    decode batch of 32 streams (device time by kernel, the share of decode
-   wall time the device was busy, the median decode step), then a
+   wall time the device was busy, the median decode step, and K2's
+   device time: its split and merge kernels together), then a
    prefill-only batch of 2 streams of 2048-token prompts with 1 output
    token (device time by kernel over the prefill steps, and K3's share).
 
@@ -259,6 +262,7 @@ def check_attention(torch, bench: Bench, gen, results: dict) -> None:
     import torch.nn.functional as Fn
 
     from dynamo_tpu_torch.ops.paged_attention import (
+        decode_plan,
         paged_attention_decode_stacked,
         paged_attention_prefill_stacked,
         paged_attention_plain,
@@ -267,50 +271,66 @@ def check_attention(torch, bench: Bench, gen, results: dict) -> None:
     np_rng = np.random.default_rng(11)
     layer = L - 1
     scale = 1.0 / math.sqrt(DH)
-    # K2: B=64, contexts 128..4096
-    ctx_np = np.linspace(128, 4096, 64).astype(np.int32)
-    np_rng.shuffle(ctx_np)
-    ctx = torch.from_numpy(ctx_np).cuda()
-    for bs in (16, 128):
-        tables, n_pages = _paged_layout(torch, np_rng, ctx_np, bs)
-        for quantized in (True, False):
-            caches, scales = _make_cache(torch, gen, n_pages, bs, layer, quantized)
-            q = torch.randn((64, H, DH), device="cuda", generator=gen).to(torch.bfloat16)
-            for window in (None, 1000):
-                args = (q, caches[0], caches[1], layer, tables, ctx, bs, window, scales[0], scales[1])
-                fn = lambda: paged_attention_decode_stacked(*args)  # noqa: E731
-                pos = (ctx.long() - 1)[:, None]
-                plain = lambda: paged_attention_plain(  # noqa: E731
-                    q[:, None], caches[0], caches[1], layer, tables, pos, ctx, bs, window, scales[0], scales[1])[:, 0]
-                out, ref = fn(), plain()
-                torch.cuda.synchronize()
-                c = compare(torch, out, ref, rtol=ATTN_RTOL, atol=ATTN_ATOL_FRAC * ref.float().abs().max().item())
-                eff = np.minimum(ctx_np, window) if window else ctx_np
-                itemsize = 1 if quantized else 2
-                nbytes = (2 * q.numel() * 2 + int(eff.sum()) * HK * DH * itemsize * 2
-                          + (int(eff.sum()) * HK * 8 if quantized else 0) + tables.numel() * 4 + 64 * 4)
-                bound, by = bench.bound_ms(nbytes, 4.0 * H * DH * float(eff.sum()))
-                k_l, v_l = _sdpa_inputs(torch, q, caches, scales, tables, bs, layer, quantized)
-                kpos = torch.arange(k_l.shape[2], device="cuda")
-                mask = kpos[None, :] < ctx[:, None]
-                if window:
-                    mask &= kpos[None, :] >= (ctx[:, None] - window)
-                mask = mask[:, None, None, :]
-                q4 = q[:, :, None, :]
-                lib = lambda: Fn.scaled_dot_product_attention(q4, k_l, v_l, attn_mask=mask)  # noqa: E731
-                row = {
-                    "wrapper": "paged_attention_decode_stacked",
-                    "shape": f"B=64 ctx=128..4096 bs={bs} {'int8' if quantized else 'bf16'} window={window} layer={layer}",
-                    "kernel_ms": bench.time_ms(fn), "plain_ms": bench.time_ms(plain, reps=3),
-                    "library_ms": bench.time_ms(lib, reps=5), "bound_ms": bound, "bound_by": by, **c,
-                }
-                log("check " + json.dumps(row))
-                results.setdefault(row["wrapper"], []).append(row)
-                if not c["ok"]:
-                    raise AssertionError(f"decode {row['shape']} disagrees with its plain version")
-                del k_l, v_l, out, ref
-            del caches, scales
-            torch.cuda.empty_cache()
+    # K2: B=64, contexts 128..4096 (both page sizes and cache types, with
+    # and without a window); B=8 at ctx 8192; B=32 at ctx 129..192 (the
+    # decode profile's batch)
+    c64 = np.linspace(128, 4096, 64).astype(np.int32)
+    np_rng.shuffle(c64)
+    c32 = np.linspace(129, 192, 32).astype(np.int32)
+    np_rng.shuffle(c32)
+    decode_shapes = [("B=64 ctx=128..4096", c64, (16, 128), (True, False), (None, 1000)),
+                     ("B=8 ctx=8192", np.full(8, 8192, np.int32), (16,), (True,), (None,)),
+                     ("B=32 ctx=129..192", c32, (16,), (True,), (None,))]
+    for label, ctx_np, page_sizes, dtypes, windows in decode_shapes:
+        B = len(ctx_np)
+        ctx = torch.from_numpy(ctx_np).cuda()
+        for bs in page_sizes:
+            tables, n_pages = _paged_layout(torch, np_rng, ctx_np, bs)
+            kps, n_splits = decode_plan(B, HK, tables.shape[1], bs)
+            plan = {"keys_per_split": kps, "n_splits": n_splits, "blocks": B * HK * n_splits,
+                    "live_blocks": HK * int(sum(-(-int(c) // kps) for c in ctx_np))}
+            log(f"decode_plan {label} bs={bs} W={tables.shape[1]}: {json.dumps(plan)}")
+            for quantized in dtypes:
+                caches, scales = _make_cache(torch, gen, n_pages, bs, layer, quantized)
+                q = torch.randn((B, H, DH), device="cuda", generator=gen).to(torch.bfloat16)
+                for window in windows:
+                    args = (q, caches[0], caches[1], layer, tables, ctx, bs, window, scales[0], scales[1])
+                    fn = lambda: paged_attention_decode_stacked(*args)  # noqa: E731
+                    pos = (ctx.long() - 1)[:, None]
+                    plain = lambda: paged_attention_plain(  # noqa: E731
+                        q[:, None], caches[0], caches[1], layer, tables, pos, ctx, bs, window,
+                        scales[0], scales[1])[:, 0]
+                    out, ref = fn(), plain()
+                    torch.cuda.synchronize()
+                    c = compare(torch, out, ref, rtol=ATTN_RTOL, atol=ATTN_ATOL_FRAC * ref.float().abs().max().item())
+                    eff = np.minimum(ctx_np, window) if window else ctx_np
+                    itemsize = 1 if quantized else 2
+                    nbytes = (2 * q.numel() * 2 + int(eff.sum()) * HK * DH * itemsize * 2
+                              + (int(eff.sum()) * HK * 8 if quantized else 0) + tables.numel() * 4 + B * 4)
+                    bound, by = bench.bound_ms(nbytes, 4.0 * H * DH * float(eff.sum()))
+                    k_l, v_l = _sdpa_inputs(torch, q, caches, scales, tables, bs, layer, quantized)
+                    kpos = torch.arange(k_l.shape[2], device="cuda")
+                    mask = kpos[None, :] < ctx[:, None]
+                    if window:
+                        mask &= kpos[None, :] >= (ctx[:, None] - window)
+                    mask = mask[:, None, None, :]
+                    q4 = q[:, :, None, :]
+                    lib = lambda: Fn.scaled_dot_product_attention(q4, k_l, v_l, attn_mask=mask)  # noqa: E731
+                    row = {
+                        "wrapper": "paged_attention_decode_stacked",
+                        "shape": f"{label} bs={bs} {'int8' if quantized else 'bf16'} window={window} layer={layer}",
+                        "kernel_ms": bench.time_ms(fn), "plain_ms": bench.time_ms(plain, reps=3),
+                        "library_ms": bench.time_ms(lib, reps=5), "bound_ms": bound, "bound_by": by,
+                        "plan": plan, **c,
+                    }
+                    row["of_bound"] = bound / row["kernel_ms"]
+                    log("check " + json.dumps(row))
+                    results.setdefault(row["wrapper"], []).append(row)
+                    if not c["ok"]:
+                        raise AssertionError(f"decode {row['shape']} disagrees with its plain version")
+                    del k_l, v_l, out, ref
+                del caches, scales
+                torch.cuda.empty_cache()
     # K3: B=2, T=1024, first chunk then second chunk (16-token pages);
     # the second chunk of an int8 cache at 128-token pages
     T = 1024
@@ -367,7 +387,7 @@ REPRESENTATIVE = {
     "qmm": "wq/wo plain M=64",
     "qmm_gate_up": "gate/up gate_up M=64",
     "qmm_lm_head": "lm_head lm_head M=64",
-    "paged_attention_decode_stacked": "bs=16 int8 window=None",
+    "paged_attention_decode_stacked": "B=64 ctx=128..4096 bs=16 int8 window=None",
     "paged_attention_prefill_stacked": "start=1024 bs=16 int8 window=None",
 }
 SOURCES = {
@@ -614,6 +634,8 @@ async def profile(torch) -> dict:
     device_ms = sum(r[0] for r in rows)
     p_device_ms = sum(r[0] for r in p_rows)
     k3_ms = sum(r[0] for r in p_rows if "prefill_kernel" in r[2])
+    # K2 = its split kernel plus its merge kernel
+    k2 = [r for r in rows if "k2::split_kernel" in r[2] or "k2::merge_kernel" in r[2]]
     return {
         "streams": n, "isl": isl, "osl": osl, "wall_s": wall,
         "tok_s": n * osl / wall,
@@ -621,6 +643,7 @@ async def profile(torch) -> dict:
         "decode_steps": len(dec), "decode_step_ms_median": _median_ms(dec),
         "prefill_step_ms": prefill_ms,
         "device_ms_total": device_ms,
+        "k2_ms": sum(r[0] for r in k2), "k2_launches": {r[2][:60]: r[1] for r in k2},
         "top_kernels_ms": _top(rows),
         "prefill_only": {
             "streams": p_n, "isl": p_isl, "osl": 1, "wall_s": p_wall,

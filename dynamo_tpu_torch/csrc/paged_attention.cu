@@ -28,10 +28,34 @@
 // with 16-byte copies, so page sizes 16 and 128 are the same code. The
 // G = H/Hk query heads of a GQA group share each K/V load.
 //
-// K2 design: one block per (sequence, KV head) stages 32 keys at a time,
-// converted to f32 in shared memory (int8 and bf16 values are exact in
-// f32), and runs f32 FMAs; no split over pages (flash-decoding) yet.
-//
+// K2 design (split-KV flash-decoding on CUDA cores). At G = 4 an int8
+// K or V byte takes 2 G = 8 operations, far below the ~20 operations a
+// byte at which the card's 67 TFLOP/s f32 rate would bind, so the only
+// aim is to move the bytes at full rate: at B=64, contexts 128..4096,
+// int8, the 0.0855 ms of the byte bound against ~0.033 ms of f32 FMAs.
+// Tensor cores would add fragment layouts and 12 wasted rows of 16 for
+// nothing. What the design does about it:
+// - The grid is (split, KV head, sequence): each sequence's keys are cut
+//   into splits of keys_per_split (ops/paged_attention.py::decode_plan,
+//   a function of B, Hk, W and bs only), so a batch of few or long
+//   sequences still fills the 132 SMs; a block whose keys lie outside
+//   [window start, ctx) returns at once.
+// - A block loads its split's block-table entries into shared memory
+//   once, then gathers 64-key chunks of raw K/V rows (int8 stays int8)
+//   and their scales by cp.async into a 3-stage ring: two chunks are in
+//   flight while one computes, with one barrier a chunk. Rows are padded
+//   by 16 bytes, so 8 lanes reading 8 rows hit 8 distinct bank groups.
+// - Each of the 4 warps owns 16 keys of a chunk and its own online
+//   softmax in registers: Q K^T takes two lanes a key (each half of the
+//   16-byte pieces, joined by one shuffle), q in shared memory as f32;
+//   P V takes one lane per Dh/32 dims of every head. int8 converts by
+//   byte permutes and an f32 subtract (i8x4_to_f32), never on the
+//   quarter-rate conversion unit, which alone would cost ~0.066 ms.
+// - The block merges its warps' (m, l, acc) and writes the split's
+//   partial in f32; a second kernel, one block per (KV head, sequence),
+//   merges the live splits in split order. No atomics: every call gives
+//   the same bits.
+
 // K3 design (arithmetic-bound, so the work goes to the tensor cores):
 // one block of two warpgroups per (KV head, sequence, 128-row query
 // tile), row r = (token r / G, head r % G); each warpgroup owns 64 rows.
@@ -65,31 +89,26 @@
 
 namespace {
 
-constexpr int NT = 128;   // threads per block
-constexpr int C = 32;     // keys staged per step
-constexpr int MAXG = 8;   // largest GQA group the decode kernel takes
+constexpr int MAXG = 8;   // largest GQA group the kernels take
 constexpr float NEG = -1e30f;
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <typename T>
-__device__ __forceinline__ void to_float(const uint4& u, float* dst);
-
-template <>
-__device__ __forceinline__ void to_float<__nv_bfloat16>(const uint4& u,
-                                                        float* dst) {
-  const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&u);
-#pragma unroll
-  for (int e = 0; e < 8; ++e) dst[e] = __bfloat162float(h[e]);
+// 4-byte global -> shared copy; with live false the destination is
+// zero-filled (src must still be a valid address).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   sm90::smem_addr(dst)),
+               "l"(src), "r"(live ? 4 : 0));
 }
 
-template <>
-__device__ __forceinline__ void to_float<int8_t>(const uint4& u, float* dst) {
-  const int8_t* b = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-  for (int e = 0; e < 16; ++e) dst[e] = (float)b[e];
+__device__ __forceinline__ float ex2(float x) {  // 2^x
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 struct Cache {
@@ -102,152 +121,375 @@ struct Cache {
   int64_t S;  // slots per layer
 };
 
-// Stage keys/values at positions [p0, p0 + C) of sequence b, head hk,
-// into Ks/Vs [C][DH + 4] as f32 (zeros at and past `pend`), with their
-// scales (1 for a float cache).
-template <typename T, int DH>
-__device__ __forceinline__ void stage_chunk(const Cache& c, int b, int hk,
-                                            int p0, int pend, float* Ks,
-                                            float* Vs, float* kss,
-                                            float* vss) {
-  constexpr int VEC = 16 / sizeof(T);
-  constexpr int PER_ROW = DH / VEC;
+// ---------------------------------------------------------------- K2 --
+namespace k2 {
+
+using namespace sm90;
+
+constexpr int NT = 128;     // threads per block (both kernels)
+constexpr int KC = 64;      // keys per chunk (ops/paged_attention.py: DECODE_CHUNK)
+constexpr int KW = KC / 4;  // keys of a chunk per warp
+constexpr int STAGES = 3;   // chunks in the cp.async ring
+constexpr int TBL = 256;    // block-table entries a split holds (_DECODE_TABLE)
+
+// wait until at most N of this thread's committed copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 4 int8 in one word -> 4 f32, exactly, by the byte-permute route of
+// sm90::i8x4_to_bf16: each byte, biased to unsigned, becomes the low
+// mantissa bits of 2^23, and the bias is subtracted in f32.
+__device__ __forceinline__ void i8x4_to_f32(uint32_t w, float* f) {
+  constexpr uint32_t MAGIC = 0x4b000000u;  // 2^23
+  constexpr float BIAS = 8388736.0f;       // 2^23 + 128
+  w ^= 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(w, MAGIC, 0x7540 | i)) - BIAS;
+}
+
+// 2 bf16 in one word -> 2 f32 (exact: a shift)
+__device__ __forceinline__ void bf16x2_to_f32(uint32_t w, float* f) {
+  f[0] = __uint_as_float(w << 16);
+  f[1] = __uint_as_float(w & 0xffff0000u);
+}
+
+// one 16-byte piece of a cache row -> its 16 / sizeof(T) values in f32
+template <typename T>
+__device__ __forceinline__ void piece_to_f32(const uint4& u, float* f) {
+  if constexpr (sizeof(T) == 1) {
+    i8x4_to_f32(u.x, f);
+    i8x4_to_f32(u.y, f + 4);
+    i8x4_to_f32(u.z, f + 8);
+    i8x4_to_f32(u.w, f + 12);
+  } else {
+    bf16x2_to_f32(u.x, f);
+    bf16x2_to_f32(u.y, f + 2);
+    bf16x2_to_f32(u.z, f + 4);
+    bf16x2_to_f32(u.w, f + 6);
+  }
+}
+
+// dims [lane * N, lane * N + N) of a staged cache row, in f32
+template <typename T, int N>
+__device__ __forceinline__ void dims_to_f32(const unsigned char* row, int lane,
+                                            float* f) {
+  const unsigned char* at = row + lane * N * (int)sizeof(T);
+  if constexpr (sizeof(T) == 1) {
+    float t[4];
+    i8x4_to_f32(N == 4 ? *reinterpret_cast<const uint32_t*>(at)
+                       : (uint32_t)*reinterpret_cast<const uint16_t*>(at), t);
+#pragma unroll
+    for (int e = 0; e < N; ++e) f[e] = t[e];
+  } else if constexpr (N == 4) {
+    uint2 u = *reinterpret_cast<const uint2*>(at);
+    bf16x2_to_f32(u.x, f);
+    bf16x2_to_f32(u.y, f + 2);
+  } else {
+    bf16x2_to_f32(*reinterpret_cast<const uint32_t*>(at), f);
+  }
+}
+
+// The keys [x, y) that sequence b attends to: inside its window, before
+// its context length and inside its block table. Both kernels derive a
+// split's liveness from it, so they agree on which partials exist.
+__device__ __forceinline__ int2 live_keys(const int* ctx_lens, int b,
+                                          int window, int max_keys) {
+  const int ctx = ctx_lens[b];
+  return make_int2(window > 0 ? max(ctx - window, 0) : 0, min(ctx, max_keys));
+}
+
+// Shared memory of a split block, in this order: the ring, STAGES x
+// (K, V [KC][RST] raw rows, scales [K, V][KC] f32); q [G][DH] f32; the
+// rounded probabilities [4 warps][KW][G] f32; the split's block-table
+// entries. After the loop the ring holds the warps' (acc, m, l).
+template <typename T, int DH, int G>
+struct Smem {
+  static constexpr int RST = DH * (int)sizeof(T) + 16;  // bytes a staged row
+  static constexpr int KV_BYTES = KC * RST;
+  static constexpr int STAGE = 2 * KV_BYTES + 2 * KC * 4;
+  static constexpr int Q_OFF = STAGES * STAGE;
+  static constexpr int P_OFF = Q_OFF + G * DH * 4;
+  static constexpr int T_OFF = P_OFF + 4 * KW * G * 4;
+  static constexpr int BYTES = T_OFF + TBL * 4;
+  static_assert(4 * G * DH * 4 + 2 * 4 * G * 4 <= Q_OFF, "warp merge fits the ring");
+  static_assert(STAGE % 16 == 0 && RST % 16 == 0, "16-byte copies");
+};
+
+// One block per (split, KV head, sequence): the split's live keys
+// against the G query heads of the KV head. Writes the split's partial
+// per head, m in log2 units: acc [DH] at ws[row * DH], (m, l) at
+// ws[n_rows * DH + 2 row], row = (b * H + h) * n_splits + split.
+template <typename T, int DH, int G>
+__global__ void __launch_bounds__(NT) split_kernel(
+    const __nv_bfloat16* __restrict__ q, Cache c,
+    const int* __restrict__ ctx_lens, float* __restrict__ ws, int H,
+    int window, float scale_log2, int kps) {
+  using SM = Smem<T, DH, G>;
+  constexpr int VEC = 16 / sizeof(T);    // values a 16-byte piece
+  constexpr int PER_ROW = DH / VEC;      // pieces a row
+  constexpr int STEP = NT / PER_ROW;     // rows a pass of the block copies
+  constexpr int DPL = DH / 32;           // P V: dims a lane
+  static_assert(PER_ROW % 2 == 0 && KC % STEP == 0, "copy tiling");
+  extern __shared__ __align__(128) unsigned char sm[];
+  float* qs = reinterpret_cast<float*>(sm + SM::Q_OFF);
+  float* ps = reinterpret_cast<float*>(sm + SM::P_OFF);
+  int* tbl = reinterpret_cast<int*>(sm + SM::T_OFF);
+
+  const int split = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int n_splits = gridDim.x;
+  const int2 live = live_keys(ctx_lens, b, window, c.W * c.bs);
+  const int s0 = split * kps;
+  const int a = max(live.x, s0), e = min(live.y, s0 + kps);
+  if (a >= e) return;  // nothing of this split is attended: no partial
+  const int c0 = s0 + (a - s0) / KC * KC;  // first chunk
+  const int n_chunks = (e - c0 + KC - 1) / KC;
+  const int bs_shift = (c.bs & (c.bs - 1)) == 0 ? __ffs(c.bs) - 1 : -1;
+  auto page_of = [&](int p) { return bs_shift >= 0 ? p >> bs_shift : p / c.bs; };
+  const int page0 = page_of(c0);
+
+  // the split's table entries, q as f32, unit scales for a float cache
+  const int* table = c.tables + (int64_t)b * c.W;
+  for (int i = threadIdx.x; i <= page_of(e - 1) - page0; i += NT)
+    tbl[i] = table[page0 + i];
+  const __nv_bfloat16* qb = q + ((int64_t)b * H + hk * G) * DH;
+  for (int i = threadIdx.x; i < G * DH; i += NT) qs[i] = __bfloat162float(qb[i]);
+  if (c.ks == nullptr)
+    for (int i = threadIdx.x; i < STAGES * 2 * KC; i += NT)
+      reinterpret_cast<float*>(sm + (i / (2 * KC)) * SM::STAGE +
+                               2 * SM::KV_BYTES)[i % (2 * KC)] = 1.0f;
+  __syncthreads();
+
+  const int kv_slot = c.Hk * DH;  // elements from one slot to the next
+  const int64_t kv_base = (int64_t)c.layer * c.S * kv_slot + hk * DH;
+  const int sc_page = c.Hk * c.bs;
+  const int64_t sc_base = (int64_t)c.layer * c.NP * sc_page + hk * c.bs;
   const T* kc = reinterpret_cast<const T*>(c.k);
   const T* vc = reinterpret_cast<const T*>(c.v);
-  for (int i = threadIdx.x; i < C * PER_ROW; i += NT) {
-    int row = i / PER_ROW, col = (i % PER_ROW) * VEC;
-    int p = p0 + row;
-    float kf[VEC], vf[VEC];
-    if (p < pend) {
-      int64_t slot = (int64_t)c.tables[(int64_t)b * c.W + p / c.bs] * c.bs +
-                     p % c.bs;
-      int64_t off = (((int64_t)c.layer * c.S + slot) * c.Hk + hk) * DH + col;
-      to_float<T>(*reinterpret_cast<const uint4*>(kc + off), kf);
-      to_float<T>(*reinterpret_cast<const uint4*>(vc + off), vf);
-    } else {
+  // start the copies of chunk j into stage st: rows outside [a, e) are
+  // zero-filled and read nothing
+  auto start_chunk = [&](int j, int st) {
+    unsigned char* kd = sm + st * SM::STAGE;
+    unsigned char* vd = kd + SM::KV_BYTES;
+    const int p0 = c0 + j * KC;
+    const int col = threadIdx.x % PER_ROW;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) kf[e] = vf[e] = 0.0f;
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; e += 4) {
-      *reinterpret_cast<float4*>(Ks + row * (DH + 4) + col + e) =
-          make_float4(kf[e], kf[e + 1], kf[e + 2], kf[e + 3]);
-      *reinterpret_cast<float4*>(Vs + row * (DH + 4) + col + e) =
-          make_float4(vf[e], vf[e + 1], vf[e + 2], vf[e + 3]);
-    }
-  }
-  for (int row = threadIdx.x; row < C; row += NT) {
-    int p = p0 + row;
-    float a = 1.0f, bsc = 1.0f;
-    if (c.ks != nullptr && p < pend) {
-      int page = c.tables[(int64_t)b * c.W + p / c.bs];
-      int64_t o = (((int64_t)c.layer * c.NP + page) * c.Hk + hk) * c.bs +
-                  p % c.bs;
-      a = c.ks[o];
-      bsc = c.vs[o];
-    }
-    kss[row] = a;
-    vss[row] = bsc;
-  }
-}
-
-// One row's online-softmax update over a staged chunk: scores in srow
-// (masked entries already NEG) become bf16-rounded p * v_scale in place.
-__device__ __forceinline__ void softmax_row(float* srow, const bool* valid,
-                                            const float* vss, float* m,
-                                            float* l, float* alpha) {
-  float m_prev = *m, m_new = m_prev;
-#pragma unroll 8
-  for (int c = 0; c < C; ++c) m_new = fmaxf(m_new, srow[c]);
-  float sum = 0.0f;
-#pragma unroll 8
-  for (int c = 0; c < C; ++c) {
-    float p = valid[c] ? expf(srow[c] - m_new) : 0.0f;
-    sum += p;
-    srow[c] = round_bf16(p * vss[c]);
-  }
-  float a = expf(m_prev - m_new);
-  *alpha = a;
-  *l = *l * a + sum;
-  *m = m_new;
-}
-
-// ---------------------------------------------------------------- K2 --
-template <typename T, int DH>
-__global__ void __launch_bounds__(NT) decode_kernel(
-    const __nv_bfloat16* __restrict__ q, Cache c,
-    const int* __restrict__ ctx_lens, __nv_bfloat16* __restrict__ out, int H,
-    int window, float scale) {
-  constexpr int PAIRS = MAXG * DH / NT;
-  __shared__ __align__(16) float qs[MAXG][DH];
-  __shared__ __align__(16) float Ks[C * (DH + 4)];
-  __shared__ __align__(16) float Vs[C * (DH + 4)];
-  __shared__ float P[MAXG][C];
-  __shared__ bool valid[C];
-  __shared__ float kss[C], vss[C], m_s[MAXG], l_s[MAXG], a_s[MAXG];
-
-  const int b = blockIdx.x, hk = blockIdx.y;
-  const int G = H / c.Hk;
-  const int ctx = ctx_lens[b];
-  const int lo = window > 0 ? max(ctx - window, 0) : 0;
-  const __nv_bfloat16* qb = q + ((int64_t)b * H + hk * G) * DH;
-  for (int i = threadIdx.x; i < G * DH; i += NT)
-    qs[i / DH][i % DH] = __bfloat162float(qb[i]);
-  if (threadIdx.x < G) {
-    m_s[threadIdx.x] = NEG;
-    l_s[threadIdx.x] = 0.0f;
-  }
-  float acc[PAIRS];
-#pragma unroll
-  for (int j = 0; j < PAIRS; ++j) acc[j] = 0.0f;
-
-  for (int p0 = (lo / C) * C; p0 < ctx; p0 += C) {
-    __syncthreads();  // previous chunk fully consumed
-    stage_chunk<T, DH>(c, b, hk, p0, ctx, Ks, Vs, kss, vss);
-    if (threadIdx.x < C) {
-      int p = p0 + threadIdx.x;
-      valid[threadIdx.x] = p < ctx && p >= lo;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < G * C; i += NT) {
-      int g = i / C, k = i % C;
-      const float4* qv = reinterpret_cast<const float4*>(qs[g]);
-      const float4* kv = reinterpret_cast<const float4*>(Ks + k * (DH + 4));
-      float dot = 0.0f;
-#pragma unroll
-      for (int d = 0; d < DH / 4; ++d) {
-        float4 a = qv[d], bb = kv[d];
-        dot += a.x * bb.x + a.y * bb.y + a.z * bb.z + a.w * bb.w;
+    for (int r = threadIdx.x / PER_ROW; r < KC; r += STEP) {
+      const int p = p0 + r;
+      const bool on = p >= a && p < e;
+      int64_t off = 0;
+      if (on) {
+        const int pg = page_of(p);
+        off = kv_base + ((int64_t)tbl[pg - page0] * c.bs + (p - pg * c.bs)) * kv_slot +
+              col * VEC;
       }
-      P[g][k] = valid[k] ? dot * scale * kss[k] : NEG;
+      cp_async16(kd + r * SM::RST + col * 16, kc + off, on);
+      cp_async16(vd + r * SM::RST + col * 16, vc + off, on);
     }
-    __syncthreads();
-    if (threadIdx.x < G) {
-      int g = threadIdx.x;
-      softmax_row(P[g], valid, vss, &m_s[g], &l_s[g], &a_s[g]);
+    if (c.ks != nullptr && threadIdx.x < KC) {
+      const int p = p0 + threadIdx.x;
+      const bool on = p >= a && p < e;
+      int64_t o = 0;
+      if (on) {
+        const int pg = page_of(p);
+        o = sc_base + (int64_t)tbl[pg - page0] * sc_page + (p - pg * c.bs);
+      }
+      float* sc = reinterpret_cast<float*>(vd + SM::KV_BYTES);
+      cp_async4(sc + threadIdx.x, c.ks + o, on);
+      cp_async4(sc + KC + threadIdx.x, c.vs + o, on);
     }
-    __syncthreads();
+  };
 #pragma unroll
-    for (int j = 0; j < PAIRS; ++j) {
-      int i = threadIdx.x + j * NT;
-      if (i < G * DH) {
-        int g = i / DH, d = i % DH;
-        float a = 0.0f;
-#pragma unroll 8
-        for (int k = 0; k < C; ++k) a += P[g][k] * Vs[k * (DH + 4) + d];
-        acc[j] = acc[j] * a_s[g] + a;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_chunks) start_chunk(s, s);
+    cp_async_commit();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int kl = lane & (KW - 1);  // Q K^T: this lane's key of the warp's
+  const int key = warp * KW + kl;
+  const int half = lane / KW;      // ... and its half of the pieces
+  float m[G], lsum[G], acc[G][DPL];  // lsum: this lane's part of l
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    m[g] = NEG;
+    lsum[g] = 0.0f;
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) acc[g][d] = 0.0f;
+  }
+  float* pw = ps + warp * KW * G;  // this warp's rounded probabilities
+
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<STAGES - 2>();  // chunk j has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; chunk j - 1 is consumed
+    if (j + STAGES - 1 < n_chunks) start_chunk(j + STAGES - 1, (j + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const unsigned char* kst = sm + (j % STAGES) * SM::STAGE;
+    const unsigned char* vst = kst + SM::KV_BYTES;
+    const float* kss = reinterpret_cast<const float*>(vst + SM::KV_BYTES);
+
+    // scores: q . k over this lane's pieces 2 i + half, then the pair's sum
+    float s[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) s[g] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < PER_ROW / 2; ++i) {
+      const int pc = 2 * i + half;
+      float kf[VEC];
+      piece_to_f32<T>(*reinterpret_cast<const uint4*>(kst + key * SM::RST + pc * 16), kf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+#pragma unroll
+        for (int x = 0; x < VEC; x += 4) {
+          const float4 qv = *reinterpret_cast<const float4*>(qs + g * DH + pc * VEC + x);
+          s[g] = fmaf(qv.x, kf[x], s[g]);
+          s[g] = fmaf(qv.y, kf[x + 1], s[g]);
+          s[g] = fmaf(qv.z, kf[x + 2], s[g]);
+          s[g] = fmaf(qv.w, kf[x + 3], s[g]);
+        }
       }
     }
+    // online softmax over the warp's 16 keys (log2 units); p * v_scale
+    // rounded to bf16, as the Pallas kernel rounds before P V
+    const int p = c0 + j * KC + key;
+    const bool valid = p >= a && p < e;
+    const float ksc = scale_log2 * kss[key];
+    const float vsc = kss[KC + key];
+    float alpha[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float v = s[g] + __shfl_xor_sync(0xffffffffu, s[g], KW);
+      v = valid ? v * ksc : NEG;
+      float mx = v;
+#pragma unroll
+      for (int o = KW / 2; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_new = fmaxf(m[g], mx);
+      alpha[g] = ex2(m[g] - m_new);
+      const float pr = valid ? ex2(v - m_new) : 0.0f;
+      lsum[g] = lsum[g] * alpha[g] + pr;
+      m[g] = m_new;
+      s[g] = round_bf16(pr * vsc);
+    }
+    if (half == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) pw[kl * G + g] = s[g];
+    }
+    __syncwarp();
+    // O = O * alpha + P V over the warp's keys, DPL dims a lane
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int d = 0; d < DPL; ++d) acc[g][d] *= alpha[g];
+#pragma unroll 4
+    for (int k = 0; k < KW; ++k) {
+      float vf[DPL];
+      dims_to_f32<T, DPL>(vst + (warp * KW + k) * SM::RST, lane, vf);
+      float pk[G];
+      if constexpr (G % 4 == 0) {
+#pragma unroll
+        for (int g = 0; g < G; g += 4) {
+          const float4 t = *reinterpret_cast<const float4*>(pw + k * G + g);
+          pk[g] = t.x;
+          pk[g + 1] = t.y;
+          pk[g + 2] = t.z;
+          pk[g + 3] = t.w;
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < G; ++g) pk[g] = pw[k * G + g];
+      }
+#pragma unroll
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int d = 0; d < DPL; ++d) acc[g][d] = fmaf(pk[g], vf[d], acc[g][d]);
+    }
+    __syncwarp();  // pw is rewritten by the next chunk
+  }
+  cp_async_wait<0>();  // only empty groups remain; none may land later
+  __syncthreads();     // every warp is done with the ring
+
+  // the 4 warps' states into the ring, then merged in warp order
+  float* wacc = reinterpret_cast<float*>(sm);  // [4][G][DH]
+  float* wm = wacc + 4 * G * DH;               // [4][G]
+  float* wl = wm + 4 * G;                      // [4][G]
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float l = lsum[g];
+#pragma unroll
+    for (int o = KW / 2; o > 0; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (lane == 0) {
+      wm[warp * G + g] = m[g];
+      wl[warp * G + g] = l;
+    }
+#pragma unroll
+    for (int d = 0; d < DPL; ++d) wacc[(warp * G + g) * DH + lane * DPL + d] = acc[g][d];
   }
   __syncthreads();
-  __nv_bfloat16* ob = out + ((int64_t)b * H + hk * G) * DH;
+  const int64_t n_rows = (int64_t)gridDim.z * H * n_splits;
+  for (int i = threadIdx.x; i < G * DH; i += NT) {
+    const int g = i / DH, d = i % DH;
+    float mx = NEG;
 #pragma unroll
-  for (int j = 0; j < PAIRS; ++j) {
-    int i = threadIdx.x + j * NT;
-    if (i < G * DH)
-      ob[i] = __float2bfloat16(acc[j] / fmaxf(l_s[i / DH], 1e-9f));
+    for (int w = 0; w < 4; ++w) mx = fmaxf(mx, wm[w * G + g]);
+    float o = 0.0f, l = 0.0f;
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {  // a warp that saw no valid key has f = 0
+      const float f = ex2(wm[w * G + g] - mx);
+      o += wacc[(w * G + g) * DH + d] * f;
+      l += wl[w * G + g] * f;
+    }
+    const int64_t row = ((int64_t)b * H + hk * G + g) * n_splits + split;
+    ws[row * DH + d] = o;
+    if (d == 0) {
+      ws[n_rows * DH + 2 * row] = mx;
+      ws[n_rows * DH + 2 * row + 1] = l;
+    }
   }
 }
+
+// One block per (KV head, sequence): merges the partials of the live
+// splits in split order (m = max m_i, each scaled by 2^(m_i - m)), and
+// writes out = acc / max(l, 1e-9) in bf16. A sequence with no live
+// split (ctx = 0) writes exact zeros.
+template <int DH>
+__global__ void __launch_bounds__(NT) merge_kernel(
+    const float* __restrict__ ws, const int* __restrict__ ctx_lens,
+    __nv_bfloat16* __restrict__ out, int H, int G, int window, int max_keys,
+    int kps, int n_splits) {
+  const int hk = blockIdx.x, b = blockIdx.y;
+  const int2 live = live_keys(ctx_lens, b, window, max_keys);
+  const int first = live.x < live.y ? live.x / kps : 0;
+  const int last = live.x < live.y ? (live.y - 1) / kps : -1;
+  const float* ml = ws + (int64_t)gridDim.y * H * n_splits * DH;
+  for (int i = threadIdx.x; i < G * DH / 4; i += NT) {
+    const int g = i / (DH / 4), d = (i % (DH / 4)) * 4;
+    const int64_t r0 = ((int64_t)b * H + hk * G + g) * n_splits;
+    float mx = NEG;
+    for (int s = first; s <= last; ++s) mx = fmaxf(mx, ml[2 * (r0 + s)]);
+    float4 o = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    float l = 0.0f;
+    for (int s = first; s <= last; ++s) {
+      const float f = ex2(ml[2 * (r0 + s)] - mx);
+      const float4 x = *reinterpret_cast<const float4*>(ws + (r0 + s) * DH + d);
+      o.x += x.x * f;
+      o.y += x.y * f;
+      o.z += x.z * f;
+      o.w += x.w * f;
+      l += ml[2 * (r0 + s) + 1] * f;
+    }
+    const float den = fmaxf(l, 1e-9f);
+    __nv_bfloat162 lo = __floats2bfloat162_rn(o.x / den, o.y / den);
+    __nv_bfloat162 hi = __floats2bfloat162_rn(o.z / den, o.w / den);
+    uint2 u;
+    u.x = *reinterpret_cast<uint32_t*>(&lo);
+    u.y = *reinterpret_cast<uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(out + ((int64_t)b * H + hk * G + g) * DH + d) = u;
+  }
+}
+
+}  // namespace k2
 
 // ---------------------------------------------------------------- K3 --
 namespace k3 {
@@ -258,21 +500,6 @@ constexpr int KC = 64;           // keys per chunk
 constexpr int NWG = 2;           // warpgroups per block, 64 query rows each
 constexpr int PT = 128 * NWG;    // threads per block
 constexpr int ROWS = 64 * NWG;   // query rows (tokens x group) per block
-
-// 4-byte global -> shared copy; with live false the destination is
-// zero-filled (src must still be a valid address).
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool live) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 4 : 0));
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
@@ -673,14 +900,41 @@ int run_prefill(const void* q, const Cache& c, const void* starts,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int DH>
+// K2: the split kernel, then the merge kernel, on one stream; ws holds
+// n_splits = ceil(W bs / kps) partials of (Dh + 2) floats a (b, head).
+template <typename T, int DH, int G>
 int run_decode(const void* q, const Cache& c, const void* ctx, void* out,
-               int B, int H, int window, float scale, cudaStream_t st) {
-  dim3 grid(B, c.Hk);
-  decode_kernel<T, DH><<<grid, NT, 0, st>>>(
-      (const __nv_bfloat16*)q, c, (const int*)ctx, (__nv_bfloat16*)out, H,
-      window, scale);
+               void* ws, int B, int H, int window, float scale, int kps,
+               cudaStream_t st) {
+  using SM = k2::Smem<T, DH, G>;
+  cudaError_t err = cudaFuncSetAttribute(
+      k2::split_kernel<T, DH, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SM::BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int max_keys = c.W * c.bs;
+  const int n_splits = max((max_keys + kps - 1) / kps, 1);
+  k2::split_kernel<T, DH, G><<<dim3(n_splits, c.Hk, B), k2::NT, SM::BYTES, st>>>(
+      (const __nv_bfloat16*)q, c, (const int*)ctx, (float*)ws, H, window,
+      scale * 1.4426950408889634f, kps);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  k2::merge_kernel<DH><<<dim3(c.Hk, B), k2::NT, 0, st>>>(
+      (const float*)ws, (const int*)ctx, (__nv_bfloat16*)out, H, G, window,
+      max_keys, kps, n_splits);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int run_decode_g(const void* q, const Cache& c, const void* ctx, void* out,
+                 void* ws, int B, int H, int window, float scale, int kps,
+                 cudaStream_t st) {
+  switch (H / c.Hk) {
+    case 1: return run_decode<T, DH, 1>(q, c, ctx, out, ws, B, H, window, scale, kps, st);
+    case 2: return run_decode<T, DH, 2>(q, c, ctx, out, ws, B, H, window, scale, kps, st);
+    case 4: return run_decode<T, DH, 4>(q, c, ctx, out, ws, B, H, window, scale, kps, st);
+    case 8: return run_decode<T, DH, 8>(q, c, ctx, out, ws, B, H, window, scale, kps, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 Cache make_cache(const void* k, const void* v, const void* ks, const void* vs,
@@ -711,26 +965,35 @@ bool group_ok(int H, int Hk, int maxg) {
 
 // q [B, H, Dh] bf16; caches [L, S, Hk, Dh] bf16 (quantized = 0) or int8
 // (quantized = 1, scales [L, NP, Hk, bs] f32); tables [B, W] i32; ctx [B]
-// i32; out [B, H, Dh] bf16. window <= 0 = none. Dh in {64, 128}, H/Hk a
-// power of two <= 8. Returns cudaGetLastError() after the launch.
+// i32; out [B, H, Dh] bf16; workspace: B H ceil(W bs / keys_per_split)
+// (Dh + 2) f32. window <= 0 = none. Dh in {64, 128}, H/Hk a power of two
+// <= 8, keys_per_split a multiple of the 64-key chunk whose keys span at
+// most 256 table entries. Returns the first cudaGetLastError() that is
+// not cudaSuccess, after the two launches.
 extern "C" int pa_decode_launch(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* tables, const void* ctx,
-                                void* out, int quantized, int layer, int B,
-                                int H, int Hk, int Dh, long long S, int NP,
-                                int bs, int W, int window, float scale,
+                                void* out, void* workspace, int quantized,
+                                int layer, int B, int H, int Hk, int Dh,
+                                long long S, int NP, int bs, int W,
+                                int window, float scale, int keys_per_split,
                                 void* stream) {
-  if (!group_ok(H, Hk, MAXG) || B <= 0) return (int)cudaErrorInvalidValue;
+  if (!group_ok(H, Hk, MAXG) || B <= 0 || bs <= 0 || keys_per_split <= 0 ||
+      keys_per_split % k2::KC != 0 || (keys_per_split - 1) / bs + 2 > k2::TBL)
+    return (int)cudaErrorInvalidValue;
   Cache c = make_cache(k, v, quantized ? ks : nullptr,
                        quantized ? vs : nullptr, tables, layer, Hk, S, NP,
                        bs, W);
   cudaStream_t st = (cudaStream_t)stream;
+  const int kps = keys_per_split;
   if (Dh == 128)
-    return quantized ? run_decode<int8_t, 128>(q, c, ctx, out, B, H, window, scale, st)
-                     : run_decode<__nv_bfloat16, 128>(q, c, ctx, out, B, H, window, scale, st);
+    return quantized
+               ? run_decode_g<int8_t, 128>(q, c, ctx, out, workspace, B, H, window, scale, kps, st)
+               : run_decode_g<__nv_bfloat16, 128>(q, c, ctx, out, workspace, B, H, window, scale, kps, st);
   if (Dh == 64)
-    return quantized ? run_decode<int8_t, 64>(q, c, ctx, out, B, H, window, scale, st)
-                     : run_decode<__nv_bfloat16, 64>(q, c, ctx, out, B, H, window, scale, st);
+    return quantized
+               ? run_decode_g<int8_t, 64>(q, c, ctx, out, workspace, B, H, window, scale, kps, st)
+               : run_decode_g<__nv_bfloat16, 64>(q, c, ctx, out, workspace, B, H, window, scale, kps, st);
   return (int)cudaErrorInvalidValue;
 }
 

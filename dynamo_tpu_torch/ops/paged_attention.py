@@ -16,7 +16,15 @@ valid key give zeros.
 
 Each wrapper launches its CUDA kernel for CUDA tensors and runs its plain
 version for CPU tensors; there is no fallback from one to the other.
-``<wrapper>.launches`` counts kernel launches.
+``<wrapper>.launches`` counts wrapper calls that launched their kernels
+(K2 launches two: the split kernel and the merge kernel).
+
+K2 is split-KV flash-decoding: ``decode_plan`` cuts each sequence's keys
+into splits, a function of the host-known sizes only (never a context
+length, which would cost a device-to-host copy and change the grid from
+step to step), and the kernel writes one f32 partial per live split,
+merged in split order by a second kernel. ``decode_split_plain`` is the
+same split-and-merge in plain torch, a test oracle for those boundaries.
 """
 
 from __future__ import annotations
@@ -29,8 +37,18 @@ import torch
 
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.kv_quant import gather_slot_scales
+from dynamo_tpu_torch.ops.qmatmul import SMS
 
 NEG = -1e30
+
+# K2's launch geometry (csrc/paged_attention.cu, namespace k2)
+DECODE_CHUNK = 64  # keys a split block gathers per ring stage (KC)
+_DECODE_TABLE = 256  # block-table entries a split block holds (TBL)
+_DECODE_MAX_SPLIT = 512  # keys a split at most: finer splits balance the tail
+# blocks the grid should have when every key is live: two waves at four
+# blocks an SM (the int8 Dh=128 G=4 kernel, at 61 KB of shared memory a
+# block, holds three)
+_DECODE_MIN_BLOCKS = 2 * 4 * SMS
 
 
 # ---------------------------------------------------------------------------
@@ -90,6 +108,78 @@ def paged_attention_plain(
     return out.reshape(B, T, H, Dh).to(q.dtype)
 
 
+def decode_plan(B: int, Hk: int, W: int, bs: int) -> tuple[int, int]:
+    """K2's split of the keys: (keys_per_split, n_splits) for a batch of
+    B sequences, Hk KV heads and block tables of W pages of bs tokens.
+    The grid is (n_splits, Hk, B); n_splits = ceil(W * bs / keys_per_split).
+    Takes the largest split of 512, 256, 128 or 64 keys whose grid has
+    at least ``_DECODE_MIN_BLOCKS`` blocks, else 64: few or long
+    sequences are cut finer, so they still fill the card. A split spans
+    at most ``_DECODE_TABLE`` pages."""
+    keys = max(W * bs, 1)
+    cap = min(_DECODE_MAX_SPLIT, (_DECODE_TABLE - 2) * bs)
+    kps = DECODE_CHUNK
+    for cand in (512, 256, 128, 64):
+        if cand <= cap and B * Hk * -(-keys // cand) >= _DECODE_MIN_BLOCKS:
+            kps = cand
+            break
+    return kps, -(-keys // kps)
+
+
+def decode_split_plain(
+    q: torch.Tensor,  # [B, H, Dh]
+    k_cache, v_cache, layer: int,
+    block_tables: torch.Tensor,  # [B, W]
+    context_lens: torch.Tensor,  # [B]
+    block_size: int,
+    sliding_window: Optional[int] = None,
+    k_scale=None, v_scale=None,
+) -> torch.Tensor:
+    """K2's split-and-merge in plain torch (a test oracle; the wrappers
+    never call it): the keys in ``[ctx - window, ctx)`` cut at
+    ``decode_plan``'s split boundaries; per split the max, p = exp(s - m)
+    against it, l = sum p and acc = bf16(p * v_scale) @ V; then the live
+    splits merged in split order, out = acc / max(l, 1e-9)."""
+    B, H, Dh = q.shape
+    Hk = k_cache.shape[2]
+    G = H // Hk
+    W = block_tables.shape[1]
+    S = W * block_size
+    kps, n_splits = decode_plan(B, Hk, W, block_size)
+    slot_ids = (
+        block_tables.long()[:, :, None] * block_size
+        + torch.arange(block_size, device=q.device)[None, None, :]
+    ).reshape(B, S)
+    keys, ks = _gather_layer(k_cache, k_scale, layer, slot_ids, block_size)
+    vals, vs = _gather_layer(v_cache, v_scale, layer, slot_ids, block_size)
+    qg = q.float().reshape(B, Hk, G, Dh)
+    scores = torch.einsum("bkgd,bskd->bkgs", qg, keys) * (1.0 / math.sqrt(Dh))
+    scores = scores * ks.permute(0, 2, 1)[:, :, None, :]
+    ctx = context_lens.long()[:, None, None, None]
+    lo = (ctx - sliding_window).clamp_min(0) if sliding_window is not None else 0
+    key_pos = torch.arange(S, device=q.device)[None, None, None, :]
+    valid = (key_pos < ctx) & (key_pos >= lo)
+    scores = torch.where(valid, scores, torch.full_like(scores, NEG))
+    vsc = vs.permute(0, 2, 1)[:, :, None, :]
+    parts = []  # per split: its max, l and acc (zeros past the live keys)
+    for i in range(n_splits):
+        sl = slice(i * kps, min((i + 1) * kps, S))
+        s = scores[..., sl]
+        m_i = s.amax(dim=-1, keepdim=True)
+        p = torch.where(valid[..., sl], torch.exp(s - m_i), torch.zeros_like(s))
+        pv = (p * vsc[..., sl]).to(torch.bfloat16).float()
+        parts.append((m_i, p.sum(dim=-1, keepdim=True),
+                      torch.einsum("bkgs,bskd->bkgd", pv, vals[:, sl])))
+    m = torch.stack([m_i for m_i, _, _ in parts]).amax(dim=0)
+    acc = torch.zeros((B, Hk, G, Dh), device=q.device)
+    l = torch.zeros((B, Hk, G, 1), device=q.device)
+    for m_i, l_i, acc_i in parts:  # in split order
+        f = torch.exp(m_i - m)
+        acc = acc + acc_i * f
+        l = l + l_i * f
+    return (acc / l.clamp_min(1e-9)).reshape(B, H, Dh).to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel launch
 # ---------------------------------------------------------------------------
@@ -101,7 +191,7 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         ll, f = ctypes.c_longlong, ctypes.c_float
         lib.pa_decode_launch.argtypes = [
-            p, p, p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, f, p,
+            p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, ll, i, i, i, i, f, i, p,
         ]
         lib.pa_decode_launch.restype = ctypes.c_int
         lib.pa_prefill_launch.argtypes = [
@@ -189,13 +279,19 @@ def paged_attention_decode_stacked(
     if not 0 <= layer < L:
         raise IndexError(f"layer {layer} outside the {L}-layer cache")
     B, H, _ = q.shape
+    W = block_tables.shape[1]
+    kps, n_splits = decode_plan(B, Hk, W, block_size)
+    if kps % DECODE_CHUNK or n_splits != -(-max(W * block_size, 1) // kps):
+        raise ValueError(f"decode plan ({kps}, {n_splits}) does not cut {W * block_size} keys")
     out = torch.empty_like(q)
+    # per (sequence, head, split): acc [Dh], then all (m, l) pairs
+    ws = torch.empty(B * H * n_splits * (Dh + 2), dtype=torch.float32, device=q.device)
     rc = _lib().pa_decode_launch(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), int(quantized), layer, B, H, Hk, Dh, S, N,
-        block_size, block_tables.shape[1], _window(sliding_window),
-        1.0 / math.sqrt(Dh), _build.stream_ptr(q.device),
+        out.data_ptr(), ws.data_ptr(), int(quantized), layer, B, H, Hk, Dh, S,
+        N, block_size, W, _window(sliding_window), 1.0 / math.sqrt(Dh), kps,
+        _build.stream_ptr(q.device),
     )
     _build.check(rc, "pa_decode_launch")
     paged_attention_decode_stacked.launches += 1

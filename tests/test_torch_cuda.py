@@ -144,13 +144,32 @@ def _paged(gen, B, ctx, bs, L, Hk, Dh, quantized):
     return tables, kv, sc
 
 
+# (contexts, forced keys_per_split): ragged contexts under the default
+# plan; long contexts (B <= 4) that the plan cuts into many splits, where
+# the 50-key window of ctx 5000 crosses a split edge; and 64-key splits
+# forced on the plan, which cut 128-token pages and put the window of
+# ctx 300 across the edge at 256. A ctx = 0 row in each.
+DECODE_LAYOUTS = {
+    "ragged": ([1, 37, 0, 300, 129], None),
+    "long": ([5000, 8192, 0, 77], None),
+    "split64": ([1, 37, 0, 300, 129, 700], 64),
+}
+
+
+def _force_plan(monkeypatch, kps):
+    monkeypatch.setattr(pa, "decode_plan", lambda B, Hk, W, bs: (kps, -(-W * bs // kps)))
+
+
+@pytest.mark.parametrize("layout", list(DECODE_LAYOUTS))
 @pytest.mark.parametrize("Dh", [64, 128])
 @pytest.mark.parametrize("H,Hk", [(8, 8), (8, 4), (8, 2), (8, 1)])
 @pytest.mark.parametrize("bs", [16, 128])
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("window", [None, 50])
-def test_decode_kernel_matches_plain(gen, Dh, H, Hk, bs, quantized, window):
-    ctx_list = [1, 37, 0, 300, 129]
+def test_decode_kernel_matches_plain(gen, monkeypatch, Dh, H, Hk, bs, quantized, window, layout):
+    ctx_list, kps = DECODE_LAYOUTS[layout]
+    if kps:
+        _force_plan(monkeypatch, kps)
     B, L, layer = len(ctx_list), 3, 2
     tables, kv, sc = _paged(gen, B, ctx_list, bs, L, Hk, Dh, quantized)
     ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
@@ -160,7 +179,39 @@ def test_decode_kernel_matches_plain(gen, Dh, H, Hk, bs, quantized, window):
     ref = pa.paged_attention_plain(q[:, None], kv[0], kv[1], layer, tables, pos, ctx, bs, window, *sc)[:, 0]
     torch.cuda.synchronize()
     _close_per_sequence(got, ref)
-    assert (got[2] == 0).all()  # ctx 0: exact zeros
+    assert (got[ctx == 0] == 0).all()  # ctx 0: exact zeros
+
+
+def test_decode_split_merge_is_deterministic(gen):
+    """B=64, contexts 128..4096, int8, 16-token pages (the serving shape):
+    the splits are merged in order without atomics, so two calls agree
+    bit for bit."""
+    ctx_list = torch.linspace(128, 4096, 64).int().tolist()
+    tables, kv, sc = _paged(gen, 64, ctx_list, 16, 1, 8, 128, True)
+    assert pa.decode_plan(64, 8, tables.shape[1], 16)[1] > 1
+    ctx = torch.tensor(ctx_list, dtype=torch.int32, device="cuda")
+    q = torch.randn(64, 32, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    a = pa.paged_attention_decode_stacked(q, kv[0], kv[1], 0, tables, ctx, 16, None, *sc)
+    b = pa.paged_attention_decode_stacked(q, kv[0], kv[1], 0, tables, ctx, 16, None, *sc)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("window", [None, 50])
+def test_decode_rows_without_keys_are_zero(gen, monkeypatch, window):
+    """ctx = 0 rows write exact zeros with several splits a row, also in
+    a launch where no sequence has a key (no split block is live)."""
+    _force_plan(monkeypatch, 64)
+    ctx_list = [0, 3000, 0]
+    tables, kv, sc = _paged(gen, 3, ctx_list, 16, 1, 2, 128, True)
+    assert -(-tables.shape[1] * 16 // 64) > 1
+    q = torch.randn(3, 8, 128, device="cuda", generator=gen).to(torch.bfloat16)
+    for ctx_now in (ctx_list, [0, 0, 0]):
+        ctx = torch.tensor(ctx_now, dtype=torch.int32, device="cuda")
+        got = pa.paged_attention_decode_stacked(q, kv[0], kv[1], 0, tables, ctx, 16, window, *sc)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all()
+        assert (got[ctx == 0] == 0).all()
 
 
 def _prefill_case(gen, T, chunk, start, bs, H, Hk, Dh, quantized, window):

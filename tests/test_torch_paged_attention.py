@@ -183,3 +183,74 @@ def test_port_gather_path_matches_reference_gather_path(quantized):
     kl, vl = _layer_pair(jc, layer)
     ref = j_reference(qj, kl, vl, jnp.asarray(tables), jnp.asarray(pos), jnp.asarray(ctx), bs, 9)
     _close(got, ref)
+
+
+# K2's launch plan: (B, Hk, W, bs) of the serving path and of edge cases
+PLAN_SHAPES = [(64, 8, 256, 16), (8, 8, 512, 16), (32, 8, 16, 16), (1, 1, 1, 16),
+               (256, 8, 8, 16), (4, 1, 512, 128), (3, 2, 7, 1), (5, 8, 100, 128), (2, 4, 33, 8)]
+
+
+@pytest.mark.parametrize("B,Hk,W,bs", PLAN_SHAPES)
+def test_decode_plan_cuts_every_key_once(B, Hk, W, bs):
+    kps, n = tpa.decode_plan(B, Hk, W, bs)
+    keys = W * bs
+    assert kps % tpa.DECODE_CHUNK == 0 and 0 < kps <= 512
+    # splits [i kps, (i + 1) kps) cover [0, keys), and the last holds a key
+    assert n * kps >= keys and (n - 1) * kps < keys
+    # a split's keys span at most the table entries a block holds
+    assert (kps - 1) // bs + 2 <= tpa._DECODE_TABLE
+    assert tpa.decode_plan(B, Hk, W, bs) == (kps, n)
+
+
+def test_decode_plan_reads_only_host_sizes_and_fills_the_card():
+    import inspect
+
+    assert list(inspect.signature(tpa.decode_plan).parameters) == ["B", "Hk", "W", "bs"]
+    # B=64 at 4096-key tables and B=8 at 8192: at least two waves of blocks
+    for B, W in ((64, 256), (8, 512)):
+        kps, n = tpa.decode_plan(B, 8, W, 16)
+        assert B * 8 * n >= tpa._DECODE_MIN_BLOCKS >= 2 * tpa.SMS
+    # the 32-stream decode batch (ctx ~160, 16-page tables): more than
+    # one block per (sequence, KV head)
+    kps, n = tpa.decode_plan(32, 8, 16, 16)
+    assert -(-160 // kps) > 1
+
+
+# splits of 8, 24 and 40 keys cut 8- and 16-token pages; the 13-key
+# window starts inside a split, and at ctx 47 (split 24) and ctx 90
+# (split 24) lies wholly in the sequence's last split
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("window", [None, 13])
+@pytest.mark.parametrize("kps", [8, 24, 40])
+@pytest.mark.parametrize("bs", [8, 16])
+def test_decode_split_plain_matches_pallas_and_gather_path(monkeypatch, bs, kps, window, quantized):
+    """The split-and-merge oracle of K2, at split boundaries forced off
+    the page grid, against the Pallas kernel (interpreted) and the
+    reference's gather path; a ctx = 0 row gives exact zeros."""
+    monkeypatch.setattr(tpa, "decode_plan", lambda B, Hk, W, bs_: (kps, -(-W * bs_ // kps)))
+    rng = np.random.default_rng(100 * bs + kps + (window or 0) + quantized)
+    ctx_lens = [7, 29, 0, 47, 90]
+    n_pages = sum(-(-c // bs) for c in ctx_lens) + 2
+    tables = _tables(rng, ctx_lens, bs, n_pages)
+    assert -(-tables.shape[1] * bs // kps) > 1  # several splits
+    tc, jc = _caches(rng, n_pages, bs, quantized)
+    qt, qj = _q(rng, (len(ctx_lens), H, DH))
+    ctx = np.asarray(ctx_lens, np.int32)
+    layer = 1
+    got = tpa.decode_split_plain(
+        qt, tc[0], tc[1], layer, torch.from_numpy(tables), torch.from_numpy(ctx), bs,
+        window, tc[2], tc[3],
+    )
+    pallas = jpa.paged_attention_decode_stacked(
+        qj, jc[0], jc[1], jnp.int32(layer), jnp.asarray(tables), jnp.asarray(ctx), bs,
+        sliding_window=window, interpret=True, k_scale=jc[2], v_scale=jc[3],
+    )
+    kl, vl = _layer_pair(jc, layer)
+    gather = j_reference(
+        qj[:, None], kl, vl, jnp.asarray(tables), jnp.asarray(np.maximum(ctx - 1, 0))[:, None],
+        jnp.asarray(ctx), bs, window,
+    )[:, 0]
+    live = ctx > 0
+    _close(got, pallas)
+    _close(got[torch.from_numpy(live)], np.asarray(gather, np.float32)[live])
+    assert (got[torch.from_numpy(~live)] == 0).all()
