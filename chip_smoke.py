@@ -15,9 +15,10 @@ and the script exits non-zero:
    serving path's shapes (Llama-8B: D=4096, F=14336, V=128256, H=32, Hk=8,
    Dh=128), with the tolerance stated per kernel, and time kernel, plain
    version and one PyTorch library call (CUDA events, median of warm
-   runs, L2 flushed before each run). K2 runs at three batches (B=64,
-   contexts 128-4096; B=8 at 8192; B=32 at 129-192), each with its
-   ``decode_plan`` printed. ``bound_ms`` is the least time the
+   runs, L2 flushed before each run). K2 runs at four shapes (B=64,
+   contexts 128-4096; B=8 at 8192; B=32 at 129-192; B=64 at 129-192 with
+   the static serving width of 520 table entries, whose splits are
+   mostly empty), each with its ``decode_plan`` printed. ``bound_ms`` is the least time the
    card could take: the larger of bytes moved over memory bandwidth and
    operations over the bf16 tensor rate, from the H100 SXM data sheet
    (any other card raises). Each K1 row also gives its launch plan,
@@ -32,16 +33,29 @@ and the script exits non-zero:
    wherever the top-2 gap exceeds it.
 5. serve: ``TorchEngine.launch`` at the full 8B geometry (random int8
    weights from the port's seeded init, int8 KV cache, max_batch_size 64)
-   answers 8 concurrent ``generate`` streams with prompts of 16-1500
-   tokens, some greedy and some sampled. Every stream must finish with 32
-   tokens, two identical greedy requests must agree, and the launch count
-   of every kernel must have grown during this phase alone.
-6. profile: at the same 8B geometry under ``torch.profiler``, a steady
-   decode batch of 32 streams (device time by kernel, the share of decode
-   wall time the device was busy, the median decode step, and K2's
-   device time: its split and merge kernels together), then a
-   prefill-only batch of 2 streams of 2048-token prompts with 1 output
-   token (device time by kernel over the prefill steps, and K3's share).
+   on the engine's default path: static decode shapes (buckets 4, 32 and
+   64 at table width 520), each decode shape a CUDA graph captured at
+   launch, and the overlapped decode pipeline. It answers 8 concurrent
+   ``generate`` streams with prompts of 16-1500 tokens, some greedy and
+   some sampled. Every stream must finish with 32 tokens, two identical
+   greedy requests must agree, and the launch count of every kernel must
+   have grown during this phase alone (graph replays add the launches
+   their capture recorded).
+6. profile: at the same 8B geometry and default path, under
+   ``torch.profiler``, a steady decode batch of 32 streams (device time by
+   kernel, the share of decode wall time the device was busy, the median
+   decode step, and K2's device time: its split and merge kernels
+   together), then a prefill-only batch of 2 streams of 2048-token
+   prompts with 1 output token (device time by kernel over the prefill
+   steps, and K3's share).
+7. graphs: 32 greedy + 8 sampled streams (fixed seeds), 128-token
+   prompts, 64 output tokens, submitted as one burst, in three fresh
+   engines: (graphs off, overlap off), (graphs on, overlap off) and
+   (graphs on, overlap on). The tokens must be identical in all three,
+   greedy and sampled. Per mode: the decode step median (host clock),
+   output tok/s, the device-busy share of wall time and the median device
+   ms of a decode step, both from CUDA events around each step's device
+   work (no profiler), capture seconds and the graph pool's bytes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 ``{"kernels": [...]}``: one entry per kernel wrapper, its numbers at one
@@ -69,6 +83,11 @@ ATTN_RTOL = ATTN_ATOL_FRAC = 2 ** -7
 
 # 8B geometry (DeepSeek-R1-Distill-Llama-8B)
 D, F, V, L, H, HK, DH = 4096, 14336, 128256, 32, 32, 8, 128
+# the engine's static block-table width at max_position_embeddings 8192
+# in 16-token pages: ceil((8192 + 1) / 16) + 1 = 514, to a multiple of 8
+STATIC_WIDTH = 520
+# a stuck engine fails its phase instead of running into the call's limit
+PHASE_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -205,12 +224,13 @@ def check_qmm(torch, bench: Bench, gen, results: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def _paged_layout(torch, np_rng, ctx_lens, bs):
-    """Scrambled block tables (block 0 left as the garbage page)."""
+def _paged_layout(torch, np_rng, ctx_lens, bs, width=None):
+    """Scrambled block tables (block 0 left as the garbage page), ``width``
+    entries a row (default: the longest context's)."""
     import numpy as np
 
     pages = [-(-int(c) // bs) for c in ctx_lens]
-    W = max(max(pages), 1)
+    W = width or max(max(pages), 1)
     n_pages = sum(pages) + 1
     perm = np_rng.permutation(np.arange(1, n_pages)).astype(np.int32)
     tables = np.zeros((len(ctx_lens), W), np.int32)
@@ -273,19 +293,24 @@ def check_attention(torch, bench: Bench, gen, results: dict) -> None:
     scale = 1.0 / math.sqrt(DH)
     # K2: B=64, contexts 128..4096 (both page sizes and cache types, with
     # and without a window); B=8 at ctx 8192; B=32 at ctx 129..192 (the
-    # decode profile's batch)
+    # decode profile's batch); B=64 at ctx 129..192 at the engine's static
+    # table width (8192-token cap in 16-token pages: 520 entries)
     c64 = np.linspace(128, 4096, 64).astype(np.int32)
     np_rng.shuffle(c64)
     c32 = np.linspace(129, 192, 32).astype(np.int32)
     np_rng.shuffle(c32)
-    decode_shapes = [("B=64 ctx=128..4096", c64, (16, 128), (True, False), (None, 1000)),
-                     ("B=8 ctx=8192", np.full(8, 8192, np.int32), (16,), (True,), (None,)),
-                     ("B=32 ctx=129..192", c32, (16,), (True,), (None,))]
-    for label, ctx_np, page_sizes, dtypes, windows in decode_shapes:
+    c64s = np.linspace(129, 192, 64).astype(np.int32)
+    np_rng.shuffle(c64s)
+    decode_shapes = [("B=64 ctx=128..4096", c64, (16, 128), (True, False), (None, 1000), None),
+                     ("B=8 ctx=8192", np.full(8, 8192, np.int32), (16,), (True,), (None,), None),
+                     ("B=32 ctx=129..192", c32, (16,), (True,), (None,), None),
+                     (f"B=64 ctx=129..192 W={STATIC_WIDTH}", c64s, (16,), (True,), (None,),
+                      STATIC_WIDTH)]
+    for label, ctx_np, page_sizes, dtypes, windows, width in decode_shapes:
         B = len(ctx_np)
         ctx = torch.from_numpy(ctx_np).cuda()
         for bs in page_sizes:
-            tables, n_pages = _paged_layout(torch, np_rng, ctx_np, bs)
+            tables, n_pages = _paged_layout(torch, np_rng, ctx_np, bs, width)
             kps, n_splits = decode_plan(B, HK, tables.shape[1], bs)
             plan = {"keys_per_split": kps, "n_splits": n_splits, "blocks": B * HK * n_splits,
                     "live_blocks": HK * int(sum(-(-int(c) // kps) for c in ctx_np))}
@@ -487,8 +512,9 @@ def check_parity(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def engine_8b():
-    """(EngineConfig, ModelConfig) of the serving path at the 8B geometry."""
+def engine_8b(**overrides):
+    """(EngineConfig, ModelConfig) of the serving path at the 8B geometry;
+    the engine's defaults otherwise (static shapes, CUDA graphs, overlap)."""
     from dynamo_tpu_torch.engine.config import EngineConfig
     from dynamo_tpu_torch.models.config import ModelConfig
 
@@ -496,8 +522,19 @@ def engine_8b():
                      num_attention_heads=H, num_key_value_heads=HK, max_position_embeddings=8192)
     cfg = EngineConfig(device="cuda", random_weights=True, quantization="int8", kv_cache_dtype="int8",
                        max_batch_size=64, block_size=16, prefill_chunk_size=1024,
-                       max_prefill_tokens=4096, seed=0)
+                       max_prefill_tokens=4096, seed=0, **overrides)
     return cfg, mc
+
+
+def graph_info(engine) -> dict:
+    """What the engine's decode graphs cost at launch."""
+    sched = engine.scheduler
+    return {
+        "cuda_graphs": engine.use_graphs, "overlap": engine.config.overlap,
+        "decode_buckets": sched.decode_buckets(), "table_width": sched.table_width_pad,
+        "graphs": len(engine.decode.graphs),
+        "capture_s": engine.decode.capture_seconds, "pool_bytes": engine.decode.pool_bytes,
+    }
 
 
 def _median_ms(xs: list[float]):
@@ -520,6 +557,9 @@ async def serve(torch) -> dict:
     engine = await TorchEngine.launch(*engine_8b())
     torch.cuda.synchronize()
     launch_s = time.monotonic() - t0
+    graphs = graph_info(engine)
+    if graphs["table_width"] != STATIC_WIDTH or graphs["graphs"] != 6:
+        raise AssertionError(f"serve: unexpected static shapes or graphs {graphs}")
     rng = np.random.default_rng(1)
     lens = [16, 64, 200, 500, 900, 1500, 48, 48]
     prompts = [rng.integers(0, V, n).tolist() for n in lens]
@@ -543,7 +583,7 @@ async def serve(torch) -> dict:
 
     try:
         t1 = time.monotonic()
-        res = await asyncio.gather(*[one(i) for i in range(len(lens))])
+        res = await asyncio.wait_for(asyncio.gather(*[one(i) for i in range(len(lens))]), PHASE_TIMEOUT_S)
         wall = time.monotonic() - t1
     finally:
         await engine.shutdown()
@@ -561,7 +601,8 @@ async def serve(torch) -> dict:
         "ttft_s": [r[2] for r in res], "steps": dict(engine.steps),
         "decode_step_ms_median": _median_ms(engine.step_seconds["decode"]),
         "prefill_step_ms": [x * 1e3 for x in engine.step_seconds["prefill"]],
-        "num_blocks": engine.allocator.num_blocks,
+        "num_blocks": engine.allocator.num_blocks, "graphs": graphs,
+        "overlap": engine.overlap.stats(),
     }
 
 
@@ -612,18 +653,19 @@ async def profile(torch) -> dict:
 
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     try:
-        await asyncio.gather(*[one(i) for i in range(4)])  # warm-up
+        await asyncio.wait_for(asyncio.gather(*[one(i) for i in range(4)]), PHASE_TIMEOUT_S)  # warm-up
         engine.step_seconds = {"prefill": [], "decode": []}
         with torch_profile(activities=activities) as prof:
             t0 = time.monotonic()
-            outs = await asyncio.gather(*[one(i) for i in range(n)])
+            outs = await asyncio.wait_for(asyncio.gather(*[one(i) for i in range(n)]), PHASE_TIMEOUT_S)
             wall = time.monotonic() - t0
         dec = engine.step_seconds["decode"]
         prefill_ms = [x * 1e3 for x in engine.step_seconds["prefill"]]
         engine.step_seconds = {"prefill": [], "decode": []}
         with torch_profile(activities=activities) as pprof:
             t0 = time.monotonic()
-            p_outs = await asyncio.gather(*[one(i, p_isl, 1) for i in range(p_n)])
+            p_outs = await asyncio.wait_for(asyncio.gather(*[one(i, p_isl, 1) for i in range(p_n)]),
+                                            PHASE_TIMEOUT_S)
             p_wall = time.monotonic() - t0
         p_steps = dict(engine.step_seconds)
     finally:
@@ -655,6 +697,89 @@ async def profile(torch) -> dict:
             "top_kernels_ms": _top(p_rows),
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# Phase: graphs (eager vs captured decode, serial vs overlapped)
+# ---------------------------------------------------------------------------
+
+GRAPH_MODES = (("eager_serial", False, False), ("graphs_serial", True, False),
+               ("graphs_overlap", True, True))
+
+
+async def graphs_mode(torch, cuda_graphs: bool, overlap: bool) -> dict:
+    """One fresh 8B engine; 32 greedy + 8 sampled streams of 128-token
+    prompts and 64 output tokens, submitted as one burst (admitted by one
+    plan, so every mode runs the same batches). Device time per step from
+    CUDA events around its device work (``record_device_time``)."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.protocols.common import PreprocessedRequest, SamplingOptions, StopConditions
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    n_greedy, n_sampled, isl, osl = 32, 8, 128, 64
+    rng = np.random.default_rng(4)
+    t0 = time.monotonic()
+    engine = await TorchEngine.launch(*engine_8b(cuda_graphs=cuda_graphs, overlap=overlap))
+    torch.cuda.synchronize()
+    launch_s = time.monotonic() - t0
+    info = graph_info(engine)
+
+    def request(i):
+        if i < n_greedy:
+            samp = SamplingOptions(use_greedy=True)
+        elif i % 2:
+            samp = SamplingOptions(temperature=0.8, top_p=0.95, top_k=50, seed=500 + i)
+        else:
+            samp = SamplingOptions(temperature=1.0, seed=500 + i)
+        return PreprocessedRequest(request_id=f"graphs-{i}", token_ids=rng.integers(0, V, isl).tolist(),
+                                   sampling=samp, stop=StopConditions(max_tokens=osl, ignore_eos=True))
+
+    async def drain(q):
+        toks = []
+        while (item := await q.get()) is not None:
+            toks += item.token_ids
+        return toks
+
+    reqs = [request(i) for i in range(n_greedy + n_sampled)]
+    try:
+        engine.record_device_time = True
+        t1 = time.monotonic()
+        queues = engine.submit_many([(r, Context()) for r in reqs])
+        outs = await asyncio.wait_for(asyncio.gather(*[drain(q) for q in queues]), PHASE_TIMEOUT_S)
+        wall = time.monotonic() - t1
+    finally:
+        await engine.shutdown()
+    if any(len(o) != osl or not all(0 <= t < V for t in o) for o in outs):
+        raise AssertionError("graphs: a stream did not finish with valid tokens")
+    dev_ms = engine.device_ms
+    return {
+        "tokens": outs,
+        "launch_s": launch_s, "wall_s": wall, "tok_s": len(reqs) * osl / wall,
+        "steps": dict(engine.steps),
+        "decode_step_ms_median": _median_ms(engine.step_seconds["decode"]),
+        "decode_device_ms_median": statistics.median(dev_ms["decode"]),
+        "device_busy_share_of_wall": (sum(dev_ms["decode"]) + sum(dev_ms["prefill"])) / 1e3 / wall,
+        "prefill_device_ms": dev_ms["prefill"],
+        "idle_gap_ms_median": statistics.median(
+            s["idle_gap_ms"] for s in engine.step_stamps["decode"]),
+        "overlap": engine.overlap.stats(), **info,
+    }
+
+
+def graphs_phase(torch) -> dict:
+    modes = {}
+    for name, cuda_graphs, overlap in GRAPH_MODES:
+        modes[name] = asyncio.run(graphs_mode(torch, cuda_graphs, overlap))
+        torch.cuda.empty_cache()
+    ref = modes["eager_serial"]["tokens"]
+    for name, res in modes.items():
+        diff = [i for i, (a, b) in enumerate(zip(ref, res.pop("tokens"))) if a != b]
+        res["streams_differing_from_eager_serial"] = diff
+        if diff:
+            raise AssertionError(f"graphs: mode {name} changed the tokens of streams {diff}")
+    return modes
 
 
 def launch_counts() -> dict:
@@ -743,6 +868,9 @@ def main() -> int:
     log(json.dumps({"serve": info}))
 
     log(json.dumps({"profile": asyncio.run(profile(torch))}))
+    torch.cuda.empty_cache()
+
+    log(json.dumps({"graphs": graphs_phase(torch)}))
 
     log(json.dumps({"kernels": kernel_entries(results, launches)}))
     log(json.dumps({"ok": True, "device": {

@@ -888,10 +888,14 @@ int run_prefill(const void* q, const Cache& c, const void* starts,
                 const void* ctx, void* out, int B, int T_len, int H,
                 int window, float scale, cudaStream_t st) {
   constexpr int bytes = k3::Layout<T, DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
-      k3::prefill_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
-  if (err != cudaSuccess) return (int)err;
+  static bool prepared = false;  // per instance: set at the first launch only
+  if (!prepared) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k3::prefill_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (err != cudaSuccess) return (int)err;
+    prepared = true;
+  }
   int TQ = k3::ROWS / (H / c.Hk);
   dim3 grid(c.Hk, B, (T_len + TQ - 1) / TQ);
   k3::prefill_kernel<T, DH><<<grid, k3::PT, bytes, st>>>(
@@ -907,16 +911,20 @@ int run_decode(const void* q, const Cache& c, const void* ctx, void* out,
                void* ws, int B, int H, int window, float scale, int kps,
                cudaStream_t st) {
   using SM = k2::Smem<T, DH, G>;
-  cudaError_t err = cudaFuncSetAttribute(
-      k2::split_kernel<T, DH, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SM::BYTES);
-  if (err != cudaSuccess) return (int)err;
+  static bool prepared = false;  // per instance: set at the first launch only
+  if (!prepared) {
+    cudaError_t err = cudaFuncSetAttribute(
+        k2::split_kernel<T, DH, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        SM::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    prepared = true;
+  }
   const int max_keys = c.W * c.bs;
   const int n_splits = max((max_keys + kps - 1) / kps, 1);
   k2::split_kernel<T, DH, G><<<dim3(n_splits, c.Hk, B), k2::NT, SM::BYTES, st>>>(
       (const __nv_bfloat16*)q, c, (const int*)ctx, (float*)ws, H, window,
       scale * 1.4426950408889634f, kps);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   k2::merge_kernel<DH><<<dim3(c.Hk, B), k2::NT, 0, st>>>(
       (const float*)ws, (const int*)ctx, (__nv_bfloat16*)out, H, G, window,

@@ -1,5 +1,5 @@
 """Engine configuration: the fields of the reference ``EngineConfig`` that
-the serial serving path reads, plus ``device``."""
+the serving path reads, plus ``device`` and ``cuda_graphs``."""
 
 from __future__ import annotations
 
@@ -32,6 +32,41 @@ class EngineConfig:
     # torch device the engine runs on; "cpu" runs every kernel's plain
     # version (tests), "cuda" launches the CUDA kernels
     device: str = "cuda"
+    # overlapped decode pipeline: the host plans and dispatches step N+1
+    # while the device runs step N (its token column chained on the
+    # device); output is bit-identical with overlap on or off. False
+    # restores the serial plan -> dispatch -> sync -> emit loop.
+    overlap: bool = True
+    # explicit mid decode bucket (None = auto: pad/2 when the pad is >= 64;
+    # 0 = no mid bucket)
+    decode_batch_mid: Optional[int] = None
+    # static serving shapes: pad the decode batch to one of a few buckets
+    # (small, mid, max_batch_size) and the block-table width to the
+    # max_model_len cap, so decode runs a fixed set of shapes
+    static_shapes: bool = True
+    # capture every decode shape at launch (None = auto: on for "cuda",
+    # off elsewhere); off, a shape is captured at its first use
+    prewarm: Optional[bool] = None
+    # decode steps as CUDA graph replays, one graph per (decode shape,
+    # sampling variant), forward and sample together (None = auto: on for
+    # "cuda", off for "cpu"; True on the CPU raises). Off, the same step
+    # runs eagerly; the two give the same tokens.
+    cuda_graphs: Optional[bool] = None
 
     def resolve_block_size(self) -> int:
         return self.block_size if self.block_size is not None else 16
+
+    def resolve_cuda_graphs(self) -> bool:
+        on_cuda = self.device.startswith("cuda")
+        if self.cuda_graphs is None:
+            return on_cuda
+        if self.cuda_graphs and not on_cuda:
+            raise ValueError(
+                f"cuda_graphs=True needs a CUDA device (device={self.device!r})"
+            )
+        return self.cuda_graphs
+
+    def resolve_prewarm(self) -> bool:
+        if self.prewarm is None:
+            return self.device.startswith("cuda")
+        return self.prewarm

@@ -1,4 +1,4 @@
-"""Batched sampling on the device.
+"""Batched sampling on the device, capturable in a CUDA graph.
 
 The port of the reference's ``sample``: greedy; temperature sampling by
 the gumbel-max trick over the full vocabulary (exact, no sort); and
@@ -6,10 +6,19 @@ top-k / top-p / min-p shaping on the top-128 slice of the scaled logits,
 normalized against the full vocabulary. Returns the chosen tokens and
 their log-probabilities under the unscaled distribution.
 
-The gumbel noise of row ``i`` comes from its own ``torch.Generator``
-seeded with ``seeds[i]``, on the logits' device: one seed gives one
-stream, so a request's samples are reproducible. The reference draws
-from ``jax.random`` keys, a different generator, so the two engines
+``sample`` reads no host value: its arrays are device tensors
+(``sampling_tensors``), and the reference's runtime branches
+(``lax.cond`` on "all rows greedy" and "any row filters") become one
+host-known flag, ``sampled``, that picks a variant. The greedy variant
+is argmax and log-softmax alone; the sampled variant always computes the
+free and the filtered draw and selects per row, as the reference's
+``jnp.where`` does, so one captured graph serves every mix of options.
+
+The gumbel noise is a counter-based function of (row seed, vocabulary
+index) in torch integer ops (``gumbel_noise``), the counterpart of the
+reference's ``jax.random.key(seed)`` per row: the same seed gives the
+same row on the same device, whatever the batch, the step's shape or the
+pipeline's timing. The reference draws other bits, so the two engines
 agree in distribution, not token for token.
 
 Not ported yet: logit bias, penalties, the guided allow-mask and
@@ -25,6 +34,16 @@ from dynamo_tpu_torch.protocols.common import SamplingOptions
 
 NEG_INF = -1e30
 TOP_KF = 128
+# the arrays of batch_arrays and their device dtypes
+SAMPLING_DTYPES = {
+    "temperature": torch.float32,
+    "top_k": torch.int32,
+    "top_p": torch.float32,
+    "min_p": torch.float32,
+    "seeds": torch.int64,
+}
+
+_M32 = 0xFFFF_FFFF
 
 
 def batch_arrays(opts: list[SamplingOptions], step_seeds: list[int]) -> dict[str, np.ndarray]:
@@ -52,6 +71,20 @@ def batch_arrays(opts: list[SamplingOptions], step_seeds: list[int]) -> dict[str
     return a
 
 
+def any_sampled(arrays: dict[str, np.ndarray]) -> bool:
+    """The host-known variant flag: does any row sample (temperature > 0)?"""
+    return bool((np.asarray(arrays["temperature"]) > 0.0).any())
+
+
+def sampling_tensors(arrays: dict[str, np.ndarray], device) -> dict[str, torch.Tensor]:
+    """``batch_arrays`` output as device tensors (one upload each; the
+    engine's decode steps stage theirs in one packed copy instead)."""
+    return {
+        k: torch.from_numpy(np.ascontiguousarray(arrays[k])).to(device=device, dtype=dt)
+        for k, dt in SAMPLING_DTYPES.items()
+    }
+
+
 def filter_keep_mask(
     vals: torch.Tensor,  # [..., KF] descending top-KF slice of scaled logits
     lse: torch.Tensor,  # [..., 1] full-vocab logsumexp of the scaled logits
@@ -73,61 +106,75 @@ def filter_keep_mask(
     return k_mask & p_mask & m_mask
 
 
-def gumbel_noise(seeds: list[int], V: int, device: torch.device) -> torch.Tensor:
-    """[B, V] standard gumbel noise, row i from a generator seeded seeds[i]."""
-    rows = []
-    tiny = torch.finfo(torch.float32).tiny
-    for seed in seeds:
-        g = torch.Generator(device=device)
-        g.manual_seed(int(seed) & 0xFFFF_FFFF_FFFF)
-        u = torch.rand(V, generator=g, device=device).clamp_min(tiny)
-        rows.append(-torch.log(-torch.log(u)))
-    return torch.stack(rows)
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for x in [0, 2^32) held in int64: c is split in
+    16-bit halves, so every product stays below 2^49."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
 
 
-def sample(logits: torch.Tensor, s: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """logits [B, V] f32 + sampling arrays (``batch_arrays``) ->
-    (next_tokens [B] int32, logprobs of the chosen tokens [B] f32)."""
-    B, V = logits.shape
-    dev = logits.device
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijective 32-bit integer hash (xor-shift-multiply, "lowbias32")
+    on int64 holding [0, 2^32). torch's ``>>`` on int64 is arithmetic, so
+    each shift is masked to its logical width."""
+    x = x ^ ((x >> 16) & 0xFFFF)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ ((x >> 15) & 0x1FFFF)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ ((x >> 16) & 0xFFFF)
 
-    def arr(name, dtype):
-        return torch.as_tensor(np.asarray(s[name]), dtype=dtype, device=dev)
 
-    temperature = arr("temperature", torch.float32)
+def gumbel_noise(seeds: torch.Tensor, V: int) -> torch.Tensor:
+    """[B, V] standard gumbel noise on ``seeds``' device, row i a function
+    of (seeds[i], vocabulary index) alone. The seed's two 32-bit halves
+    hash into a row key; each index is hashed, xored with the key and
+    hashed again; the top 24 bits give u in (0, 1) and -log(-log u) the
+    noise (|g| < 17.4)."""
+    s = seeds.to(torch.int64)
+    lo = s & _M32
+    hi = (s >> 32) & _M32
+    key = _mix32(lo ^ _mix32(hi ^ 0x9E3779B9))[:, None]  # [B, 1]
+    idx = _mix32(torch.arange(V, dtype=torch.int64, device=seeds.device))[None, :]
+    h = _mix32(idx ^ key)
+    u = (((h >> 8) & 0xFFFFFF).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _sampled_tokens(logits: torch.Tensor, s: dict, greedy_tok: torch.Tensor) -> torch.Tensor:
+    """The reference's ``sampled_path`` with its ``lax.cond`` on "any row
+    filters" resolved to always filtering and selecting per row."""
+    V = logits.shape[-1]
+    temperature, top_k, top_p, min_p = s["temperature"], s["top_k"], s["top_p"], s["min_p"]
+    scaled = logits / temperature.clamp_min(1e-4)[:, None]
+    gumbel = gumbel_noise(s["seeds"], V)
+    free_tok = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
+    KF = min(TOP_KF, V)
+    vals, idx = torch.topk(scaled, KF, dim=-1)  # descending
+    lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
+    keep = filter_keep_mask(vals, lse, top_k, top_p, min_p, V)
+    fvals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
+    choice = torch.argmax(fvals + torch.gather(gumbel, -1, idx), dim=-1)
+    filtered = torch.gather(idx, -1, choice[:, None])[:, 0].to(torch.int32)
+    need_filter = (top_k > 0) | (top_p < 1.0) | (min_p > 0.0)
+    sampled_tok = torch.where(need_filter, filtered, free_tok)
+    return torch.where(temperature <= 0.0, greedy_tok, sampled_tok)
+
+
+def sample(
+    logits: torch.Tensor, s: dict[str, torch.Tensor], sampled: bool = True
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """logits [B, V] f32 + sampling tensors (``sampling_tensors``) on the
+    logits' device -> (next_tokens [B] int32, logprobs of the chosen
+    tokens [B] f32). ``sampled=False`` is the all-greedy variant (every
+    row's temperature is 0); ``True`` is right for any batch."""
     greedy_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-    next_tok = greedy_tok
-    is_greedy = np.asarray(s["temperature"]) <= 0.0
-    if not is_greedy.all():
-        top_k, top_p, min_p = (
-            arr("top_k", torch.int32), arr("top_p", torch.float32), arr("min_p", torch.float32)
-        )
-        temp = temperature.clamp_min(1e-4)[:, None]
-        scaled = logits / temp
-        # noise only for the sampled rows; greedy rows never read theirs
-        seeds = [int(x) for x in np.asarray(s["seeds"])]
-        gumbel = torch.zeros((B, V), dtype=torch.float32, device=dev)
-        sampled_rows = np.nonzero(~is_greedy)[0]
-        gumbel[torch.as_tensor(sampled_rows, device=dev)] = gumbel_noise(
-            [seeds[i] for i in sampled_rows], V, dev
-        )
-        free_tok = torch.argmax(scaled + gumbel, dim=-1).to(torch.int32)
-        need_filter = (top_k > 0) | (top_p < 1.0) | (min_p > 0.0)
-        sampled_tok = free_tok
-        need = np.asarray(s["top_k"]) > 0
-        need |= np.asarray(s["top_p"]) < 1.0
-        need |= np.asarray(s["min_p"]) > 0.0
-        if (need & ~is_greedy).any():
-            KF = min(TOP_KF, V)
-            vals, idx = torch.topk(scaled, KF, dim=-1)  # descending
-            lse = torch.logsumexp(scaled, dim=-1, keepdim=True)
-            keep = filter_keep_mask(vals, lse, top_k, top_p, min_p, V)
-            fvals = torch.where(keep, vals, torch.full_like(vals, NEG_INF))
-            g = torch.gather(gumbel, -1, idx)
-            choice = torch.argmax(fvals + g, dim=-1)
-            filtered = torch.gather(idx, -1, choice[:, None])[:, 0].to(torch.int32)
-            sampled_tok = torch.where(need_filter, filtered, free_tok)
-        next_tok = torch.where(temperature <= 0.0, greedy_tok, sampled_tok)
+    next_tok = _sampled_tokens(logits, s, greedy_tok) if sampled else greedy_tok
     logprobs = torch.log_softmax(logits, dim=-1)
     chosen_lp = torch.gather(logprobs, -1, next_tok[:, None].long())[:, 0]
     return next_tok, chosen_lp
+
+
+def pack_pair(next_tokens: torch.Tensor, logprobs: torch.Tensor) -> torch.Tensor:
+    """One packed [2B] f32 of a step's outputs for a single device-to-host
+    copy (token ids are exact in f32: vocab < 2^24)."""
+    return torch.cat([next_tokens.to(torch.float32), logprobs])

@@ -1,5 +1,5 @@
-"""Continuous-batching scheduler, serial plan: admission, chunked prefill,
-decode batches.
+"""Continuous-batching scheduler: admission, chunked prefill, decode
+batches, and the plan of the overlapped decode pipeline.
 
 The port's copy of the reference scheduler's serial path: a waiting
 request is admitted against the block allocator (prefix blocks reused),
@@ -7,11 +7,16 @@ its prompt runs in chunks of at most ``prefill_chunk_size`` tokens, and
 then it decodes one token per step. One prefill batch or one decode batch
 per engine step; on block exhaustion the youngest running sequence is
 rolled back to the waiting queue (recompute preemption).
+``plan_pipelined_decode`` plans the next decode step while one is in
+flight; it never preempts.
 
 Step arrays keep the reference's bucketed shapes (batch and chunk length
 rounded up to a small set of sizes, block-table width to a multiple of
-8) so a step here is laid out exactly like the same step there. Padded
-rows and tokens write to the garbage slot 0 of block 0.
+8) so a step here is laid out exactly like the same step there. With
+static shapes (``apply_static_shapes``) a decode batch pads to one of at
+most three buckets and every block table to one width, so decode runs a
+fixed set of shapes. Padded rows and tokens write to the garbage slot 0
+of block 0.
 
 Pure host-side logic: no tensors, no device.
 """
@@ -130,6 +135,59 @@ class Scheduler:
         self._arrival = 0
         # invoked on every finish (incl. cancellations reaped inside plan())
         self.on_finish: Optional[Callable[[Sequence, FinishReason], None]] = None
+        # static serving shapes (apply_static_shapes; None = bucketed)
+        self.decode_batch_pad: Optional[int] = None
+        self.decode_batch_small: Optional[int] = None
+        self.decode_batch_mid: Optional[int] = None
+        self.table_width_pad: Optional[int] = None
+        self.preemptions = 0
+
+    def apply_static_shapes(
+        self,
+        max_batch_size: int,
+        max_len: int,
+        num_blocks: int,
+        decode_batch_mid: Optional[int] = None,
+        decode_steps: int = 1,
+    ) -> None:
+        """One set of decode shapes (the reference engine's static-shape
+        setup, its decode part): the batch pads to ``max_batch_size``'s
+        bucket, with a small bucket of 4 and a mid bucket (pad/2 from a
+        pad of 64, or ``decode_batch_mid``'s largest bucket strictly
+        between them; 0 = none); every block table pads to the
+        ``max_len`` cap, itself capped by the cache."""
+        self.decode_batch_pad = next_bucket(max_batch_size, self.BATCH_BUCKETS)
+        if self.decode_batch_pad > 4:
+            self.decode_batch_small = 4
+        if decode_batch_mid is not None:
+            lo = self.decode_batch_small or 0
+            fits = [
+                b for b in self.BATCH_BUCKETS
+                if lo < b < self.decode_batch_pad and b <= decode_batch_mid
+            ]
+            if decode_batch_mid > 0 and fits:
+                self.decode_batch_mid = fits[-1]
+            elif decode_batch_mid > 0:
+                log.warning(
+                    "decode_batch_mid=%d has no bucket strictly between the "
+                    "small bucket (%d) and the pad (%d); ignoring the override",
+                    decode_batch_mid, lo, self.decode_batch_pad,
+                )
+        elif self.decode_batch_pad >= 64:
+            self.decode_batch_mid = self.decode_batch_pad // 2
+        blocks_cap = min(
+            -(-(max_len + max(1, decode_steps)) // self.block_size) + 1,
+            num_blocks,
+        )
+        self.table_width_pad = max(
+            self.TABLE_BUCKET,
+            -(-blocks_cap // self.TABLE_BUCKET) * self.TABLE_BUCKET,
+        )
+
+    def decode_buckets(self) -> list[int]:
+        """The decode batch shapes of a static-shape scheduler."""
+        return sorted({b for b in (self.decode_batch_small, self.decode_batch_mid,
+                                   self.decode_batch_pad) if b is not None})
 
     # -- intake -----------------------------------------------------------
     def add_request(self, seq: Sequence) -> None:
@@ -310,8 +368,111 @@ class Scheduler:
                 safe.append(seq)
         return safe
 
+    def plan_pipelined_decode(
+        self, seqs: list[Sequence], lag: dict
+    ) -> Optional[dict]:
+        """Plan the NEXT single-token decode step while one is in flight
+        (the engine's ``_decode_pipeline``).
+
+        ``lag`` maps id(seq) -> tokens sampled by in-flight steps but not
+        yet applied to host state (one per step here). Sequences that
+        finish inside the in-flight lag (max_tokens reached, max_model_len
+        hit, or the block-table cap) are not rows of the next step, so a
+        predicted finish never leaves an in-flight step writing KV into
+        blocks a harvest-time ``finish()`` just freed. Returns None (flush
+        the pipeline) on anything irregular: cancellation, deadline
+        expiry, a non-RUNNING state, or block exhaustion. This path never
+        preempts: the serial ``plan()`` handles pressure with nothing in
+        flight.
+
+        Returns {"seqs", "arrays", "src_idx", "offsets", "vmap"}: the next
+        step's rows, its decode arrays (the token column is a placeholder:
+        the engine chains it on the device from the in-flight step's
+        sampled tokens via ``src_idx``), per-row seed offsets (= lags),
+        and the one token each row will add.
+        """
+        now = time.monotonic()
+        survivors: list[Sequence] = []
+        for seq in seqs:
+            if seq.state != SeqState.RUNNING:
+                return None
+            if seq.is_cancelled and seq.is_cancelled():
+                return None
+            if bool(seq.deadline) and now >= seq.deadline:
+                return None
+            gl = lag.get(id(seq), 0)
+            if (
+                seq.max_new_tokens is not None
+                and seq.max_new_tokens - seq.generated <= gl
+            ):
+                continue  # finishes inside the in-flight step
+            if self.max_model_len and seq.total_len + gl >= self.max_model_len:
+                continue
+            if len(seq.block_table) >= self.allocator.num_blocks - 1:
+                continue  # should_finish's can't-grow-further clause
+            survivors.append(seq)
+        if not survivors:
+            return None
+        bs = self.block_size
+        # block growth for the next step's KV write (the in-flight token's
+        # slot): no preemption; rollback on exhaustion
+        added: list[Sequence] = []
+        ok = True
+        for seq in survivors:
+            needed = seq.blocks_needed(seq.total_len + lag.get(id(seq), 0) + 1, bs)
+            while len(seq.block_table) < needed:
+                try:
+                    seq.block_table.append(self.allocator.allocate_block())
+                    added.append(seq)
+                except NoBlocksError:
+                    ok = False
+                    break
+            if not ok:
+                break
+        if not ok:
+            for seq in reversed(added):
+                self.allocator.free_sequence([seq.block_table.pop()])
+            return None
+        old_row = {id(s): j for j, s in enumerate(seqs)}
+        n = len(survivors)
+        B = self._decode_batch(n)
+        width = self._table_width(max(len(s.block_table) for s in survivors))
+        positions = np.zeros((B, 1), np.int32)
+        slot_mapping = np.zeros((B,), np.int32)
+        tables = np.zeros((B, width), np.int32)
+        ctx = np.zeros((B,), np.int32)
+        src_idx = np.zeros((B,), np.int32)
+        offsets = [0] * n
+        vmap: dict[int, int] = {}
+        for i, s in enumerate(survivors):
+            gl = lag.get(id(s), 0)
+            src_idx[i] = old_row[id(s)]
+            pos = s.total_len - 1 + gl
+            positions[i, 0] = pos
+            slot_mapping[i] = s.block_table[pos // bs] * bs + pos % bs
+            tables[i, : len(s.block_table)] = s.block_table
+            ctx[i] = s.total_len + gl
+            offsets[i] = gl
+            vmap[id(s)] = 1
+        arrays = {
+            "tokens": np.zeros((B, 1), np.int32),  # device chain overrides
+            "positions": positions,
+            "slot_mapping": slot_mapping,
+            "block_tables": tables,
+            "context_lens": ctx,
+            "last_token_idx": np.zeros((B,), np.int32),
+        }
+        return {
+            "seqs": survivors,
+            "arrays": arrays,
+            "src_idx": src_idx,
+            "offsets": offsets,
+            "vmap": vmap,
+        }
+
     def _preempt(self, victim: Sequence) -> None:
         log.warning("preempting %s (recompute)", victim.request_id)
+        self.preemptions += 1
         self.running.remove(victim)
         self.allocator.free_sequence(victim.block_table)
         victim.block_table = []
@@ -365,10 +526,26 @@ class Scheduler:
 
     # -- step arrays (bucketed shapes, as the reference lays them out) ----
     def _table_width(self, max_blocks: int) -> int:
-        return max(
+        """Block-table width for a step: the fixed serving cap when set
+        (one shape), bucketed otherwise; growing past the cap degrades to
+        a wider bucket rather than corrupting tables."""
+        w = max(
             self.TABLE_BUCKET,
             -(-max_blocks // self.TABLE_BUCKET) * self.TABLE_BUCKET,
         )
+        if self.table_width_pad is not None and w <= self.table_width_pad:
+            return self.table_width_pad
+        return w
+
+    def _decode_batch(self, n: int) -> int:
+        if self.decode_batch_small is not None and n <= self.decode_batch_small:
+            return self.decode_batch_small
+        if self.decode_batch_mid is not None and n <= self.decode_batch_mid:
+            return self.decode_batch_mid
+        b = next_bucket(n, self.BATCH_BUCKETS)
+        if self.decode_batch_pad is not None and b <= self.decode_batch_pad:
+            return self.decode_batch_pad
+        return b
 
     def build_prefill_batch_arrays(
         self, works: list[PrefillWork]
@@ -408,7 +585,7 @@ class Scheduler:
 
     def build_decode_arrays(self, seqs: list[Sequence]) -> dict[str, np.ndarray]:
         bs = self.block_size
-        B = next_bucket(len(seqs), self.BATCH_BUCKETS)
+        B = self._decode_batch(len(seqs))
         width = self._table_width(max(len(s.block_table) for s in seqs))
         tokens = np.zeros((B, 1), np.int32)
         positions = np.zeros((B, 1), np.int32)

@@ -167,7 +167,9 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, theta: float
     """Rotary embeddings in f32 angles; q/k: [B, T, H, Dh], positions [B, T]."""
     half = q.shape[-1] // 2
     exponent = torch.arange(0, half, dtype=torch.float32, device=q.device) / half
-    freqs = 1.0 / (torch.tensor(theta, dtype=torch.float32, device=q.device) ** exponent)
+    # the base made on the device (no host copy: a decode step is
+    # captured as a CUDA graph)
+    freqs = 1.0 / (torch.full((), theta, dtype=torch.float32, device=q.device) ** exponent)
     angles = positions[..., None].float() * freqs  # [B, T, half]
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]

@@ -1,0 +1,102 @@
+"""Device-overlap accounting for the engine step loop.
+
+The port's copy of the reference's tracker (same names and semantics).
+The overlapped decode pipeline only pays off if
+the device is actually busy while the host plans, packs, and emits —
+and the roofline gap only closes if we can *measure* when it is not.
+``OverlapTracker`` is the engine-thread-side ledger of that overlap:
+
+- ``note_dispatch()`` marks a device step entering the queue. When the
+  queue was EMPTY and a previous step had completed, the span since
+  that completion is a **device idle gap** — the device had nothing to
+  execute while the host did serial work (plan/unpack/emit). The gap is
+  returned (seconds) so the step record can carry it as ``idle_gap_ms``.
+- ``note_complete(all_prior=False)`` marks the oldest in-flight step's
+  result harvested (device execution is in-order, so harvesting step N
+  proves steps <= N are done). ``all_prior=True`` retires everything —
+  the serial step harvests its own (newest) dispatch, which implies
+  every earlier async dispatch completed too.
+- ``note_idle()`` resets the completion anchor when the engine parks
+  with NO work: a gap spent waiting for requests is load, not overlap
+  failure, and must not be billed as device idleness.
+
+All methods are engine-thread only; readers take an advisory
+``stats()`` snapshot.
+
+The numbers are a **host-observable lower bound**: a step's true device
+completion is only witnessed at its harvest, so idleness hidden behind
+an early finish inside a still-nonempty queue is not counted. In serial
+mode the bound is exact — every plan+unpack+emit span between a harvest
+and the next dispatch is device idle time, which is precisely the
+serialization the overlapped pipeline exists to remove.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Callable, Optional
+
+
+class OverlapTracker:
+    def __init__(self, clock: Callable[[], float] = time.monotonic):
+        self._clock = clock
+        self._inflight: deque[float] = deque()  # dispatch stamps, FIFO
+        self._last_complete: Optional[float] = None
+        self.steps_dispatched = 0
+        self.idle_events = 0
+        self.idle_gap_s_total = 0.0
+        self.last_idle_gap_s = 0.0
+        self.max_idle_gap_s = 0.0
+
+    @property
+    def inflight(self) -> int:
+        return len(self._inflight)
+
+    def note_dispatch(self) -> float:
+        """A device step was enqueued; returns the idle gap (seconds)
+        that preceded it (0.0 when the device still had queued work or
+        no completion anchor exists)."""
+        now = self._clock()
+        gap = 0.0
+        if not self._inflight and self._last_complete is not None:
+            gap = max(0.0, now - self._last_complete)
+            if gap > 0.0:
+                self.idle_events += 1
+                self.idle_gap_s_total += gap
+                self.max_idle_gap_s = max(self.max_idle_gap_s, gap)
+        self.last_idle_gap_s = gap
+        self._inflight.append(now)
+        self.steps_dispatched += 1
+        return gap
+
+    def note_complete(self, all_prior: bool = False) -> None:
+        """The oldest in-flight step's output reached the host (or, with
+        ``all_prior``, the newest — retiring everything before it)."""
+        if all_prior:
+            self._inflight.clear()
+        elif self._inflight:
+            self._inflight.popleft()
+        self._last_complete = self._clock()
+
+    def note_idle(self) -> None:
+        """The engine has NO work: drop the completion anchor so the
+        wait for the next request is not billed as a device idle gap."""
+        self._last_complete = None
+
+    def reset(self) -> None:
+        """Forget in-flight state (step failure/quarantine): the queue
+        depth is unknowable after an aborted dispatch, and a stale
+        nonempty queue would suppress idle-gap accounting forever."""
+        self._inflight.clear()
+        self._last_complete = None
+
+    def stats(self) -> dict:
+        return {
+            "steps_dispatched": self.steps_dispatched,
+            "inflight": len(self._inflight),
+            "idle_events": self.idle_events,
+            "idle_gap_s_total": round(self.idle_gap_s_total, 6),
+            "last_idle_gap_ms": round(self.last_idle_gap_s * 1e3, 3),
+            "max_idle_gap_ms": round(self.max_idle_gap_s * 1e3, 3),
+        }

@@ -11,6 +11,10 @@ serving shapes never do: M, N and K not multiples of the tiles, both K1
 configurations and its cluster split-K, every GQA group size, both head
 widths, both page sizes.
 
+The engine's decode graphs (``engine/graphs.py``) are held to the eager
+step bit for bit: a replay runs the same kernels on the same static
+buffers, so any difference is a capture fault, not rounding.
+
 Tolerances: K1 within 2^-7 relative (about one bf16 ulp) plus 2^-9 x
 max|ref| (2^-6 relative for gate_up: its activation is rounded twice;
 for the residual add, relative to |r| + |x @ W * s|, the magnitude of
@@ -21,8 +25,10 @@ over up to hundreds of keys, so it is far smaller than the values it
 averages, and a fixed absolute limit would hide a mis-weighted key.
 """
 
+import asyncio
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -267,3 +273,196 @@ def test_attention_rejects_what_the_kernel_does_not_take(gen):
     with pytest.raises(IndexError):
         tables2, kv2, _ = _paged(gen, 1, [20], 16, 1, 2, 64, False)
         pa.paged_attention_decode_stacked(q[..., :64].contiguous(), kv2[0], kv2[1], 5, tables2, ctx, 16)
+
+
+# ---------------------------------------------------------------------------
+# Decode steps as CUDA graphs (engine/graphs.py) against the eager step
+# ---------------------------------------------------------------------------
+
+_TINY = dict(vocab_size=512, hidden_size=256, intermediate_size=512, num_hidden_layers=2,
+             num_attention_heads=4, num_key_value_heads=2, max_position_embeddings=256)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+
+
+async def _launch_tiny(**kw):
+    from dynamo_tpu_torch.engine.config import EngineConfig
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+    from dynamo_tpu_torch.models.config import ModelConfig
+    from dynamo_tpu_torch.models.quant import init_params_quantized
+
+    mc = ModelConfig(**_TINY)
+    cfg = dict(device="cuda", kv_cache_dtype="int8", num_blocks=64, block_size=16,
+               max_batch_size=8, prefill_chunk_size=64, max_prefill_tokens=256)
+    cfg.update(kw)
+    return await TorchEngine.launch(EngineConfig(**cfg), mc,
+                                    params=init_params_quantized(mc, seed=3, device="cuda"))
+
+
+def _tiny_engine(**kw):
+    """An engine for driving its decode graphs directly (no requests: its
+    event loop is closed once launched)."""
+    return asyncio.run(_launch_tiny(**kw))
+
+
+def _step_arrays(B, W, first_page, seed):
+    """Decode arrays of B live rows (contexts 5..40, pages from
+    ``first_page`` on), with greedy and sampled rows."""
+    from dynamo_tpu_torch.engine.sampling import batch_arrays
+    from dynamo_tpu_torch.protocols.common import SamplingOptions
+
+    rng = np.random.default_rng(seed)
+    ctx = rng.integers(5, 40, B).astype(np.int32)
+    tables = np.zeros((B, W), np.int32)
+    for b in range(B):
+        tables[b, :3] = first_page + 3 * b + np.arange(3)
+    pos = ctx - 1
+    arrays = {
+        "tokens": rng.integers(0, _TINY["vocab_size"], (B, 1)).astype(np.int32),
+        "positions": pos[:, None].astype(np.int32),
+        "slot_mapping": (tables[np.arange(B), pos // 16] * 16 + pos % 16).astype(np.int32),
+        "block_tables": tables, "context_lens": ctx,
+        "last_token_idx": np.zeros(B, np.int32),
+    }
+    opts = [SamplingOptions(use_greedy=True), SamplingOptions(temperature=0.8, top_p=0.9),
+            SamplingOptions(temperature=1.2), SamplingOptions(temperature=0.7, top_k=5)]
+    return arrays, batch_arrays([opts[i % 4] for i in range(B)], list(range(seed, seed + B)))
+
+
+def _replay_vs_eager(eng, arrays, sampling, sampled):
+    B, W = arrays["block_tables"].shape
+    inp = eng.decode.prepare(B, W, sampled)
+    inp.stage(arrays, sampling)
+    packed, toks = eng.decode.run(B, W, sampled)
+    got = (packed.clone(), toks.clone())
+    want = eng._step_body(inp.views, sampled)  # same inputs, eagerly
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.parametrize("sampled", [False, True])
+def test_captured_decode_step_equals_eager(card, sampled):
+    eng = _tiny_engine()
+    try:
+        sched = eng.scheduler
+        assert (sched.decode_batch_small, sched.decode_batch_pad) == (4, 8)
+        W = sched.table_width_pad
+        assert {k[:2] for k in eng.decode.graphs} == {(4, W), (8, W)}  # prewarmed
+        with torch.inference_mode():
+            for B in (4, 8):
+                arrays, sampling = _step_arrays(B, W, 1, seed=B)
+                if not sampled:
+                    sampling["temperature"][:] = 0.0
+                (gp, gt), (ep, et) = _replay_vs_eager(eng, arrays, sampling, sampled)
+                assert torch.equal(gp, ep) and torch.equal(gt, et)
+                assert torch.isfinite(gp).all()
+                assert ((gt >= 0) & (gt < _TINY["vocab_size"])).all()
+    finally:
+        asyncio.run(eng.shutdown())
+
+
+def test_one_graph_replayed_with_different_inputs(card):
+    eng = _tiny_engine()
+    try:
+        W = eng.scheduler.table_width_pad
+        with torch.inference_mode():
+            a = _step_arrays(8, W, 1, seed=1)
+            b = _step_arrays(8, W, 30, seed=2)  # other pages, tokens, seeds
+            (ga, _), (ea, _) = _replay_vs_eager(eng, *a, True)
+            (gb, _), (eb, _) = _replay_vs_eager(eng, *b, True)
+        assert torch.equal(ga, ea) and torch.equal(gb, eb)
+        assert not torch.equal(ga, gb)
+    finally:
+        asyncio.run(eng.shutdown())
+
+
+def test_replay_adds_the_captured_launch_counts(card):
+    from dynamo_tpu_torch.engine.graphs import counted_wrappers
+
+    eng = _tiny_engine()
+    try:
+        W = eng.scheduler.table_width_pad
+        g = eng.decode.graphs[(8, W, True)]
+        # 2 layers of q, k, v, o + residual, down + residual (qmm), gate_up
+        # and one K2 call; one lm_head; no prefill
+        assert g.launches == [10, 2, 1, 2, 0]
+        with torch.inference_mode():
+            arrays, sampling = _step_arrays(8, W, 1, seed=3)
+            inp = eng.decode.prepare(8, W, True)
+            inp.stage(arrays, sampling)
+            before = [fn.launches for fn in counted_wrappers()]
+            eng.decode.run(8, W, True)
+            after = [fn.launches for fn in counted_wrappers()]
+            assert [x - y for x, y in zip(after, before)] == g.launches
+            eng._step_body(inp.views, True)  # eager: the same launches
+            eager = [fn.launches for fn in counted_wrappers()]
+            assert [x - y for x, y in zip(eager, after)] == g.launches
+        torch.cuda.synchronize()
+    finally:
+        asyncio.run(eng.shutdown())
+
+
+def test_engine_graphs_and_overlap_match_eager_serial(card):
+    """Greedy and seeded tokens through the whole engine: graphs + overlap
+    against eager + serial, the same burst admitted together."""
+    from dynamo_tpu_torch.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.engine import Context
+
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (5, 40, 17, 70, 33, 9)]
+
+    def run(**kw):
+        async def go():
+            eng = await _launch_tiny(**kw)
+            reqs = [PreprocessedRequest(
+                request_id=f"g{i}", token_ids=p,
+                sampling=(SamplingOptions(use_greedy=True) if i % 2 else
+                          SamplingOptions(temperature=0.9, top_p=0.95, seed=40 + i)),
+                stop=StopConditions(max_tokens=20)) for i, p in enumerate(prompts)]
+            async def drain(q):
+                toks, lps = [], []
+                while (item := await q.get()) is not None:
+                    toks += item.token_ids
+                    lps += item.log_probs or []
+                return toks, lps
+
+            try:
+                queues = eng.submit_many([(r, Context()) for r in reqs])
+                outs = await asyncio.wait_for(asyncio.gather(*[drain(q) for q in queues]), 300)
+            finally:
+                await eng.shutdown()
+            return outs, eng
+        return asyncio.run(go())
+
+    graphs, eng_g = run(cuda_graphs=True, overlap=True)
+    eager, eng_e = run(cuda_graphs=False, overlap=False)
+    assert graphs == eager
+    assert all(len(t) == 20 for t, _ in graphs)
+    assert eng_g.decode is None and eng_g.use_graphs and not eng_e.use_graphs
+    assert any(s.get("pipeline_depth") == 2 for s in eng_g.step_stamps["decode"])
+
+
+def test_failed_capture_raises(card, monkeypatch):
+    """A capture that fails (here: a host sync inside the captured step)
+    fails the launch; the engine never falls back to eager steps."""
+    from dynamo_tpu_torch.engine.engine import TorchEngine
+
+    body = TorchEngine._step_body
+
+    def syncing_body(self, inp, sampled):
+        out = body(self, inp, sampled)
+        out[0].sum().item()  # a device-to-host read: not capturable
+        return out
+
+    monkeypatch.setattr(TorchEngine, "_step_body", syncing_body)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        _tiny_engine()
+    torch.cuda.synchronize()
